@@ -1,0 +1,28 @@
+"""Dispatch of the port's kernels by where the tensors lie.
+
+A CPU tensor goes to the kernel's plain version (:mod:`.ref`), a CUDA
+tensor to the hand-written kernel, and any other device raises. A CUDA
+tensor never falls back to the plain version: if the kernel fails to build
+or launch, the call raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import fused_tick as _fused_tick
+from .ref import fused_tick_ref
+
+
+def fused_tick(lag: torch.Tensor, lag_add: torch.Tensor, rates: torch.Tensor,
+               cap: torch.Tensor, down_pre: torch.Tensor, w: torch.Tensor,
+               P: torch.Tensor, y_prev: torch.Tensor, lam: float,
+               thresh: float, dt: float):
+    """One fused-engine tick; see :func:`repro_torch.kernels.ref.fused_tick_ref`
+    for the function and the shapes."""
+    args = (lag, lag_add, rates, cap, down_pre, w, P, y_prev, lam, thresh, dt)
+    if lag.device.type == "cpu":
+        return fused_tick_ref(*args)
+    if lag.device.type == "cuda":
+        return _fused_tick.fused_tick(*args)
+    raise ValueError(f"fused_tick takes CPU or CUDA tensors, got a tensor "
+                     f"on {lag.device}")

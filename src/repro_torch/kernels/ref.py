@@ -1,0 +1,58 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each one computes its kernel's function with ordinary tensor operations.
+The CPU path of :mod:`repro_torch.kernels.ops` runs them, the tests hold
+them against the reference's kernels, and ``chip_smoke.py`` holds each
+CUDA kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def rls_rank1_update_ref(P: torch.Tensor, phi: torch.Tensor,
+                         lam: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched RLS gain and forgetting-factor covariance update.
+
+    ``P`` is ``(B, k, k)``, ``phi`` ``(B, k)``, ``lam`` ``(B,)``; returns
+    ``(g, P')`` with ``g = Pφ / (λ + φᵀPφ)`` and ``P' = (P − g(Pφ)ᵀ) / λ``.
+    """
+    Pphi = (P * phi[:, None, :]).sum(-1)
+    denom = lam + (phi * Pphi).sum(-1)
+    gain = Pphi / denom[:, None]
+    pnew = (P - gain[:, :, None] * Pphi[:, None, :]) / lam[:, None, None]
+    return gain, pnew
+
+
+def fused_tick_ref(lag: torch.Tensor, lag_add: torch.Tensor,
+                   rates: torch.Tensor, cap: torch.Tensor,
+                   down_pre: torch.Tensor, w: torch.Tensor, P: torch.Tensor,
+                   y_prev: torch.Tensor, lam: float, thresh: float, dt: float):
+    """One fused-engine tick: consumer-lag update, anomaly-detector observe
+    and rank-1 RLS update.
+
+    The lag update is :func:`repro_torch.dsp.simulator.step_batch_arrays`'
+    arithmetic, expression for expression, so the engine's lag carry (from
+    this tick) and its metrics (from ``step_batch_arrays``) agree bit for
+    bit. The detector is an AR(1)+bias RLS predictor on ``y = log1p(lag)``;
+    ``flag`` marks prediction errors beyond ``thresh``.
+
+    Shapes: ``lag/lag_add/rates/cap/down_pre/y_prev`` are ``(B,)``
+    (``down_pre`` bool), ``w`` is ``(B, 2)``, ``P`` is ``(B, 2, 2)``.
+    Returns ``(new_lag, w', P', err, flag)``.
+    """
+    lag0 = lag + lag_add
+    demand = rates * dt + lag0
+    processed = torch.minimum(cap * dt, demand)
+    new_lag = torch.where(down_pre, lag0 + rates * dt, demand - processed)
+
+    y = torch.log1p(new_lag)
+    phi = torch.stack([torch.ones_like(y_prev), y_prev], dim=-1)
+    err = y - (w * phi).sum(-1)
+    flag = err.abs() > thresh
+    gain, pnew = rls_rank1_update_ref(P, phi, torch.full_like(y, lam))
+    w2 = w + gain * err[:, None]
+    return new_lag, w2, pnew, err, flag

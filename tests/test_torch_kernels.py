@@ -1,0 +1,140 @@
+"""The port's fused-tick kernel family against the reference's.
+
+The plain version (``repro_torch.kernels.ref.fused_tick_ref``) is held
+against the reference's Pallas kernel run in interpret mode, the dispatch
+rules of ``repro_torch.kernels.ops`` are checked, and the nvcc command the
+loader would run is inspected. The CUDA kernel itself runs only on the
+card: ``tests/test_torch_cuda.py`` (marker ``cuda``) and ``chip_smoke.py``
+hold it against the plain version there.
+"""
+import jax
+import jax.experimental
+
+# Workaround for JAX 0.9.0, which dropped ``jax.experimental.enable_x64``
+# while the reference still imports it from there. Set before any ``repro``
+# import; no file of the reference is edited.
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.fused_tick import fused_tick as pallas_fused_tick  # noqa: E402
+from repro_torch.dsp.simulator import ClusterModel, step_batch_arrays  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import fused_tick as cuda_fused_tick  # noqa: E402
+from repro_torch.kernels.ref import (fused_tick_ref,  # noqa: E402
+                                     rls_rank1_update_ref)
+
+LAM, THRESH, DT = 0.995, 3.0, 5.0
+NAMES = ("new_lag", "w'", "P'", "err", "flag")
+
+
+def _operands(n, seed):
+    """NumPy operands shaped like the reference's TestFusedTick._operands."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        lag=rng.uniform(0.0, 1e5, n),
+        lag_add=rng.uniform(0.0, 1e4, n),
+        rates=rng.uniform(1e4, 9e4, n),
+        cap=rng.uniform(1e4, 8e4, n),
+        down_pre=rng.random(n) < 0.3,
+        w=rng.normal(size=(n, 2)) * 0.1,
+        P=np.broadcast_to(10.0 * np.eye(2), (n, 2, 2)).copy(),
+        y_prev=rng.uniform(0.0, 12.0, n),
+    )
+
+
+def _torch(ops_np, device="cpu"):
+    return {k: torch.from_numpy(v).to(device) for k, v in ops_np.items()}
+
+
+@pytest.mark.parametrize("n", [3, 8, 37])   # sub-block, exact, ragged
+def test_plain_fused_tick_matches_pallas_kernel(n):
+    ops_np = _operands(n, seed=n)
+    with jax.experimental.enable_x64():
+        want = pallas_fused_tick(**{k: jnp.asarray(v) for k, v in
+                                    ops_np.items()},
+                                 lam=LAM, thresh=THRESH, dt=DT,
+                                 interpret=True)
+        want = [np.asarray(x) for x in want]
+    got = [t.numpy() for t in fused_tick_ref(**_torch(ops_np), lam=LAM,
+                                             thresh=THRESH, dt=DT)]
+    for g, r, name in zip(got[:4], want[:4], NAMES):
+        assert g.dtype == np.float64, name
+        np.testing.assert_allclose(g, r, rtol=1e-12, atol=1e-12,
+                                   err_msg=name)
+    np.testing.assert_array_equal(got[4], want[4], err_msg="flag")
+
+
+@pytest.mark.parametrize("n", [3, 16, 37])
+def test_plain_lag_update_is_step_batch_arrays_bit_for_bit(n):
+    # The fused engine takes its lag carry from the tick and its metrics
+    # from step_batch_arrays: the two must agree exactly, not approximately.
+    t = _torch(_operands(n, seed=100 + n))
+    rows = torch.ones(n, dtype=torch.float64)
+    z = torch.zeros(n, dtype=torch.float64)
+    new_lag, m = step_batch_arrays(
+        ClusterModel(), t["lag"], t["lag_add"], t["rates"], rows * 4.0, rows,
+        rows * 4096.0, rows, t["cap"], t["down_pre"], t["down_pre"], z, z, DT)
+    tick_lag = fused_tick_ref(**t, lam=LAM, thresh=THRESH, dt=DT)[0]
+    np.testing.assert_array_equal(tick_lag.numpy(), new_lag.numpy())
+    np.testing.assert_array_equal(tick_lag.numpy(),
+                                  m["consumer_lag"].numpy())
+
+
+@pytest.mark.parametrize("n", [1, 5, 33])
+def test_plain_rls_update_matches_reference_oracle(n):
+    rng = np.random.default_rng(n)
+    k = 3
+    A = rng.normal(size=(n, k, k))
+    P = A @ A.transpose(0, 2, 1) + np.eye(k)
+    phi = rng.normal(size=(n, k))
+    lam = rng.uniform(0.9, 1.0, n)
+    with jax.experimental.enable_x64():
+        want = [np.asarray(x) for x in jref.rls_rank1_update_ref(
+            jnp.asarray(P), jnp.asarray(phi), jnp.asarray(lam))]
+    got = rls_rank1_update_ref(torch.from_numpy(P), torch.from_numpy(phi),
+                               torch.from_numpy(lam))
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-12, atol=1e-12)
+
+
+def test_ops_routes_cpu_tensors_to_the_plain_version():
+    t = _torch(_operands(8, seed=1))
+    got = ops.fused_tick(**t, lam=LAM, thresh=THRESH, dt=DT)
+    want = fused_tick_ref(**t, lam=LAM, thresh=THRESH, dt=DT)
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+
+
+def test_ops_raises_for_a_meta_tensor():
+    t = _torch(_operands(4, seed=2), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.fused_tick(**t, lam=LAM, thresh=THRESH, dt=DT)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    # The kernel wrapper never computes on the CPU: the plain version is
+    # reached only through ops' device dispatch.
+    t = _torch(_operands(4, seed=3))
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_fused_tick.fused_tick(**t, lam=LAM, thresh=THRESH, dt=DT)
+
+
+def test_nvcc_command_targets_hopper_without_fma_contraction(tmp_path):
+    src = build.CSRC_DIR / "fused_tick.cu"
+    cmd = build.nvcc_command("nvcc", src, tmp_path / "lib.so")
+    joined = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in joined
+    assert "--fmad=false" in cmd
+    assert "-shared" in cmd and str(src) in cmd
+    assert src.is_file()
+    # the library lands under the checkout's ignored build/ directory
+    lib = build.library_path("fused_tick")
+    assert lib.parent == build.BUILD_DIR
+    assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
+

@@ -1,0 +1,77 @@
+"""The port's standing rules.
+
+* ``repro_torch`` imports neither ``jax`` nor ``repro``, at run time or in
+  its source text (nor does ``chip_smoke.py``);
+* ``chip_smoke.py`` refuses to run without a CUDA device and prints no
+  result, also from a directory holding nothing else of the repo;
+* the port keeps registries of its own: the reference's registries gain
+  no entries from it.
+"""
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+IMPORT_RE = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)")
+
+
+def _env():
+    import os
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO / "src")
+    return env
+
+
+@pytest.mark.parametrize("module", ["repro_torch", "repro_torch.dsp",
+                                    "repro_torch.interop"])
+def test_port_imports_neither_jax_nor_reference(module):
+    code = (f"import sys, {module}\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'repro') "
+            "or m.startswith(('jax.', 'repro.'))]\n"
+            "assert not bad, bad\n"
+            "print('clean')")
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(),
+                          cwd=str(REPO), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_no_jax_or_reference_import_lines():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    hits = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
+            for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if IMPORT_RE.match(line)]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_the_card(where, tmp_path):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = REPO / "chip_smoke.py"
+    if where == "alone":
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    proc = subprocess.run([sys.executable, str(script)], env=_env(),
+                          cwd=str(script.parent), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_port_registries_are_its_own():
+    from repro_torch.core.registry import CONTROLLERS, SIM_ENGINES
+    from repro_torch.core import EngineConfig
+    EngineConfig(device="cpu")           # registers every built-in
+    assert SIM_ENGINES.available() == ("batched", "fused")
+    assert CONTROLLERS.available() == ("ds2", "reactive", "static")
+    assert "repro.core.registry" not in sys.modules or \
+        "torch" not in sys.modules["repro.core.registry"].SIM_ENGINES
