@@ -12,6 +12,10 @@ unknown names with one error shape (``unknown <kind> 'x'; available:
 registry                  entry                     defined in
 ========================  ========================  ==========================
 :data:`CONTROLLERS`       sweep policy class        ``repro_torch.dsp.policies``
+:data:`FORECASTERS`       scalar forecaster class   ``repro_torch.core.forecast``
+:data:`FIT_BACKENDS`      GP fitter callable        ``repro_torch.core.demeter``
+:data:`FORECAST_BACKENDS` forecaster factory        ``repro_torch.core.forecast_bank``
+:data:`DETECTOR_BACKENDS` detector family class     ``repro_torch.core.anomaly``
 :data:`SIM_ENGINES`       sweep executor class      ``repro_torch.dsp.executor``,
                                                     ``repro_torch.dsp.fused``
 ========================  ========================  ==========================
@@ -88,8 +92,25 @@ class Registry(Generic[T]):
         return f"Registry({self.kind!r}, entries={self.available()})"
 
 
-#: Sweep controller policies ("static" / "reactive" / "ds2" + plugins).
+#: Sweep controller policies ("static" / "reactive" / "ds2" / "demeter" +
+#: plugins).
 CONTROLLERS: Registry = Registry("controller")
+
+#: TSF forecaster kinds ("arima" / "holt" / "seasonal" + plugins). Entries are
+#: the scalar zoo classes; the batched ForecastBank mirrors the built-ins.
+FORECASTERS: Registry = Registry("forecaster")
+
+#: GP fitting backends ("bank" / "scalar"). Entries fit a batch of datasets:
+#: ``fitter(datasets, seeds, device) -> list[GP]``.
+FIT_BACKENDS: Registry = Registry("fit backend")
+
+#: TSF execution backends ("bank" / "scalar"). Entries build one forecaster:
+#: ``factory(kind, horizon=..., device=..., **kwargs) -> forecaster``.
+FORECAST_BACKENDS: Registry = Registry("forecast backend")
+
+#: Anomaly-detector backends of RecoveryTracker ("scalar"; the batched
+#: detector bank is not ported yet).
+DETECTOR_BACKENDS: Registry = Registry("detector backend")
 
 #: Sweep simulation engines ("batched" / "fused"). Entries subclass
 #: :class:`repro_torch.dsp.executor.SweepExecutorBase`; an engine with

@@ -6,16 +6,33 @@ costs and the C_max anchor — and :class:`BatchedSweepExecutor` (registered
 as ``"batched"``) steps every scenario through one vectorized NumPy
 :meth:`~repro_torch.dsp.simulator.ClusterModel.step_batch` call. The usage
 and cost normalizations are module-level so every executor shares them.
+
+Profiling runs follow the paper's lifecycle (§2.3, Fig. 3): deploy a clone
+at the predicted rate -> 2-minute stabilization -> 1-minute latency
+measurement -> inject a timeout failure -> measure recovery with the
+online-ARIMA anomaly detector over (throughput, consumer lag) until full
+catch-up or the 360 s timeout (:func:`profile_one`). The clones are
+per-scenario host simulations (:class:`~repro_torch.dsp.simulator.SimJob`)
+seeded ``seed*1009 + k + int(rate)``, as in the reference.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
+from ..core.anomaly import RecoveryTracker
+from ..core.executor import ProfileSpec, resolve_device
 from ..core.registry import SIM_ENGINES
-from .simulator import BatchedNormals, BatchState, ClusterModel, JobConfig
+from ..core.segments import LATENCY, RECOVERY, USAGE
+from .simulator import (BatchedNormals, BatchState, ClusterModel, JobConfig,
+                        SimJob)
+
+#: Profiling lifecycle constants (paper §3.2).
+STABILIZATION_S = 120.0
+MEASURE_S = 60.0
+RECOVERY_TIMEOUT_S = 360.0
 
 
 @dataclass
@@ -63,6 +80,57 @@ def observe_digest(model: ClusterModel, cmax: JobConfig,
             "usage": usage_norm(model, cmax, window)}
 
 
+def profile_one(model: ClusterModel, cmax: JobConfig, cfg: JobConfig,
+                rate: float, dt: float, seed: int,
+                account: Optional[Callable[[Dict[str, float]], None]] = None,
+                detector_backend: str = "scalar"
+                ) -> Optional[Dict[str, float]]:
+    """Run one profiling clone through the paper's lifecycle.
+
+    Returns the USAGE / LATENCY / RECOVERY observation, or None for a failed
+    run. ``account`` is called with each step's metrics so callers can charge
+    the clone's resource-time; ``detector_backend`` picks the §2.3 anomaly
+    detector path (see :data:`repro_torch.core.registry.DETECTOR_BACKENDS`)."""
+    clone = SimJob(model, cfg, seed=seed)
+    tracker = RecoveryTracker(detector_backend=detector_backend)
+    t = 0.0
+    lat_samples: List[float] = []
+    usage_samples: List[Dict[str, float]] = []
+
+    while t < STABILIZATION_S + MEASURE_S:
+        t += dt
+        m = clone.step(rate, dt)
+        if account is not None:
+            account(m)
+        tracker.observe(t, {"throughput": m["throughput"],
+                            "consumer_lag": m["consumer_lag"]})
+        if t > STABILIZATION_S:
+            lat_samples.append(m["latency"])
+            usage_samples.append(m)
+
+    lavg = float(np.mean(lat_samples))
+    usage = usage_norm(model, cmax, usage_samples)
+
+    clone.inject_failure()
+    t_fail, recovered = t, None
+    while t - t_fail < RECOVERY_TIMEOUT_S:
+        t += dt
+        m = clone.step(rate, dt)
+        if account is not None:
+            account(m)
+        tracker.observe(t, {"throughput": m["throughput"],
+                            "consumer_lag": m["consumer_lag"]})
+        if tracker.last_recovery_s is not None and clone.caught_up:
+            recovered = t - t_fail
+            break
+    if not np.isfinite(lavg):
+        return None
+    # An un-recovered run still informs the models: pin R at the timeout.
+    recovery = tracker.last_recovery_s if recovered is not None \
+        else RECOVERY_TIMEOUT_S
+    return {USAGE: usage, LATENCY: lavg, RECOVERY: float(recovery)}
+
+
 #: Metric keys kept as full per-scenario history (controller windows +
 #: sweep result arrays both read from these).
 HIST_KEYS = ("rate", "latency", "utilization", "throughput", "consumer_lag",
@@ -89,15 +157,19 @@ class SweepExecutorBase:
 
     def __init__(self, model: ClusterModel, configs: Sequence[JobConfig],
                  seeds: Sequence[int], *, dt: float, n_steps: int,
-                 cmax: Optional[JobConfig] = None, device: str = "cpu"):
+                 cmax: Optional[JobConfig] = None, device: str = "cuda",
+                 detector_backend: str = "scalar"):
         S = len(configs)
         self.model = model
         self.dt = float(dt)
         self.seeds = [int(s) for s in seeds]
         self.cmax = cmax if cmax is not None else JobConfig()
-        #: EngineConfig.device: only the fused engine places tensors; every
-        #: engine accepts it so the sweep engine passes one signature.
-        self.device_name = device
+        #: EngineConfig.device, resolved here so that every engine refuses a
+        #: missing card alike (only the fused engine places tensors; the
+        #: default is the card, as EngineConfig's is)
+        self.device = resolve_device(device)
+        #: the §2.3 detector behind profiling runs (DETECTOR_BACKENDS)
+        self.detector_backend = detector_backend
         self.hist = {k: np.zeros((S, n_steps)) for k in HIST_KEYS}
         self.workers_hist = np.zeros((S, n_steps))
         self.profile_costs = [ProfileCost() for _ in range(S)]
@@ -174,6 +246,25 @@ class SweepExecutorBase:
         return observe_digest(self.model, self.cmax,
                               self.window_dicts(idx, OBSERVE_WINDOW_S,
                                                 keys=OBSERVE_KEYS))
+
+    def profile(self, specs: Sequence[ProfileSpec]
+                ) -> List[Optional[Dict[str, float]]]:
+        """Run a flat batch of profiling requests, one host clone each.
+
+        Per-scenario enumeration within one call preserves the clone seeds
+        of the scalar protocol (``seed*1009 + k + int(rate)``)."""
+        counters: Dict[int, int] = {}
+        out: List[Optional[Dict[str, float]]] = []
+        for idx, cfg, rate in specs:
+            k = counters.get(idx, 0)
+            counters[idx] = k + 1
+            cost = self.profile_costs[idx]
+            out.append(profile_one(
+                self.model, self.cmax, JobConfig.from_dict(cfg), rate,
+                self.dt, seed=self.seeds[idx] * 1009 + k + int(rate),
+                account=lambda m, _c=cost: _c.add(m, self.dt),
+                detector_backend=self.detector_backend))
+        return out
 
     def allocated_cost(self, idx: int, config: Mapping[str, float]) -> float:
         return allocated_cost(self.model, self.cmax, config)

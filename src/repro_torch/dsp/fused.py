@@ -30,7 +30,6 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.executor import resolve_device
 from ..core.registry import SIM_ENGINES
 from ..kernels.ops import fused_tick
 from .executor import SweepExecutorBase
@@ -113,7 +112,6 @@ class FusedSweepExecutor(SweepExecutorBase):
     def __init__(self, model: ClusterModel, configs: Sequence[JobConfig],
                  seeds: Sequence[int], **kwargs):
         super().__init__(model, configs, seeds, **kwargs)
-        self.device = resolve_device(self.device_name)
         n = len(configs)
         self.state = BatchState.from_configs(configs)
         self.rngs = BatchedNormals(self.seeds)

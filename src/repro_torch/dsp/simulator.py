@@ -1,8 +1,9 @@
 """Queueing model of a Flink-style streaming job (the paper's §3 cluster).
 
 The host-side model — :class:`JobConfig`, :class:`ClusterModel` with its
-NumPy batch surfaces, the per-row RNG streams and :class:`BatchState` — is
-a copy of the reference's NumPy code, kept NumPy on purpose: every row's
+NumPy batch surfaces, the per-row RNG streams, :class:`BatchState` and the
+one-job :class:`SimJob` that Demeter's profiling clones run — is a copy of
+the reference's NumPy code, kept NumPy on purpose: every row's
 ``np.random.Generator`` stream must stay bit-identical to the reference's,
 so the port's engines draw the same numbers the reference's engines do.
 
@@ -11,7 +12,7 @@ torch, with every expression in the reference's order.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -392,3 +393,106 @@ class BatchState:
     @property
     def caught_up(self) -> np.ndarray:
         return (self.downtime_left_s <= 0.0) & (self.lag_events < 1.0)
+
+
+@dataclass
+class SimJob:
+    """One running streaming job: queueing state + failure machinery."""
+
+    model: ClusterModel
+    config: JobConfig
+    seed: int = 0
+    time_s: float = 0.0
+    lag_events: float = 0.0              # consumer lag (backlog)
+    downtime_left_s: float = 0.0         # restart in progress when > 0
+    since_checkpoint_s: float = 0.0
+    rng: np.random.Generator = field(init=False)
+    #: telemetry of the last step
+    last: Dict[str, float] = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        self.rng = np.random.default_rng(self.seed)
+
+    # ------------------------------------------------------------------
+    def step(self, rate: float, dt: float) -> Dict[str, float]:
+        """Advance the job by ``dt`` seconds under arrival ``rate`` (ev/s)."""
+        self.time_s += dt
+        noise = 1.0 + self.model.noise * self.rng.standard_normal()
+        cap = self.model.capacity(self.config) * max(noise, 0.5)
+
+        if self.downtime_left_s > 0:
+            # Job down: nothing processed, lag accumulates.
+            self.downtime_left_s = max(self.downtime_left_s - dt, 0.0)
+            self.lag_events += rate * dt
+            throughput = 0.0
+        else:
+            self.since_checkpoint_s += dt
+            if self.since_checkpoint_s >= self.config.checkpoint_interval_s:
+                self.since_checkpoint_s = 0.0
+            # Process arrivals plus as much backlog as capacity allows.
+            achievable = cap * dt
+            demand = rate * dt + self.lag_events
+            processed = min(achievable, demand)
+            self.lag_events = demand - processed
+            throughput = processed / dt
+
+        util = min(rate / max(cap, 1e-9), 1.5)
+        latency = self._latency(rate, cap, dt)
+        usage_cpu, usage_mem = self._usage(util, rate)
+        self.last = {
+            "rate": rate, "throughput": throughput, "capacity": cap,
+            "consumer_lag": self.lag_events, "latency": latency,
+            "utilization": util, "usage_cpu": usage_cpu,
+            "usage_mem_mb": usage_mem, "down": float(self.downtime_left_s > 0),
+        }
+        return self.last
+
+    def _latency(self, rate: float, cap: float, dt: float) -> float:
+        if self.downtime_left_s > 0:
+            return self.model.latency_cap_s
+        rho = min(rate / max(cap, 1e-9), 0.999)
+        base = self.model.base_latency_s * (1.0 + self.model.queue_gamma
+                                            * rho / (1.0 - rho))
+        backlog_delay = self.lag_events / max(cap, 1e-9)
+        mem_per_slot = self.config.memory_mb / max(self.config.task_slots, 1)
+        gc_penalty = 0.25 * (1024.0 / mem_per_slot) ** 2 * rho
+        noisy = (base + backlog_delay + gc_penalty) \
+            * (1.0 + 0.05 * abs(self.rng.standard_normal()))
+        return float(min(noisy, self.model.latency_cap_s))
+
+    def _usage(self, util: float, rate: float) -> tuple:
+        m = self.model
+        f = m.cpu_idle_frac
+        cpu = m.allocated_cpu(self.config) * (f + (1 - f) * min(util, 1.0))
+        state = m.state_size_mb(rate)
+        mem_needed = state / max(self.config.workers, 1) + 300.0
+        mem_frac = min(0.25 + 0.75 * mem_needed
+                       / max(self.config.memory_mb, 1.0), 1.0)
+        mem = m.allocated_mem_mb(self.config) * mem_frac
+        return float(cpu), float(mem)
+
+    # ------------------------------------------------------------------
+    def inject_failure(self) -> None:
+        """Timeout failure: detection + redeploy + state restore + replay."""
+        m = self.model
+        state = m.state_size_mb(self.last.get("rate", 0.0))
+        restore = state / (m.restore_mb_per_s * max(self.config.workers, 1))
+        self.downtime_left_s = m.failure_detect_s + m.redeploy_s + restore
+        # Rollback: events since the last checkpoint are replayed => lag.
+        self.lag_events += self.last.get("rate", 0.0) * self.since_checkpoint_s
+        self.since_checkpoint_s = 0.0
+
+    def reconfigure(self, config: JobConfig,
+                    restart_s: Optional[float] = None) -> None:
+        """Savepoint + redeploy with the new configuration."""
+        if config == self.config:
+            return
+        self.config = config
+        self.downtime_left_s = max(
+            self.downtime_left_s,
+            self.model.reconfig_restart_s if restart_s is None else restart_s)
+        self.since_checkpoint_s = 0.0
+
+    @property
+    def caught_up(self) -> bool:
+        return self.downtime_left_s <= 0 and self.lag_events < 1.0

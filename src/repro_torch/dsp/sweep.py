@@ -11,7 +11,12 @@ two pluggable surfaces:
   (:class:`~repro_torch.dsp.executor.BatchedSweepExecutor`) advances all
   scenarios one NumPy step at a time through ``drive_ticks()``;
 * registered controller policies (:mod:`repro_torch.dsp.policies`),
-  invoked per decision interval, never per simulation step.
+  invoked per decision interval, never per simulation step. Demeter model
+  updates are batched across the grid: before any due controller acts,
+  every stale (segment, metric) GP of every due scenario is refitted in
+  one :meth:`~repro_torch.core.demeter.ModelBank.batch_refresh`, and every
+  Demeter scenario's TSF stream lives in one shared
+  :class:`~repro_torch.core.forecast_bank.ForecastBank`.
 
 Failure injection, NR bookkeeping and the 6-minute recovery cap follow the
 paper's Table-3 semantics.
@@ -24,19 +29,18 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..core.demeter import ModelBank
 from ..core.executor import EngineConfig
-from ..core.registry import CONTROLLERS, SIM_ENGINES
+from ..core.forecast import FORECASTER_KINDS
+from ..core.forecast_bank import ForecastBank, make_forecaster
+from ..core.registry import CONTROLLERS, FORECASTERS, SIM_ENGINES
+from ..kernels import build as _build
 from . import policies as _policies  # noqa: F401  (registers the built-ins)
 from .executor import SweepExecutorBase
 from .runner import FAILURE_INTERVAL_S, RECOVERY_CAP_S, FailureRecord
 from .simulator import ClusterModel
 from .workloads import (FailureSchedule, NoFailures, PeriodicFailures, Trace,
                         make_trace)
-
-#: TSF forecaster kinds a Demeter scenario may name. Baselines ignore the
-#: field; the forecaster slice replaces this tuple with its registry.
-FORECASTER_KINDS = ("arima", "holt", "seasonal")
-
 
 @dataclass(frozen=True, eq=False)
 class ScenarioSpec:
@@ -47,14 +51,13 @@ class ScenarioSpec:
     seed: int = 0
     failures: FailureSchedule = field(default_factory=NoFailures)
     label: str = ""
-    #: TSF forecaster kind for Demeter scenarios (ignored by baselines).
+    #: TSF forecaster kind for Demeter scenarios (ignored by baselines);
+    #: see :data:`repro_torch.core.registry.FORECASTERS`.
     forecaster: str = "arima"
 
     def __post_init__(self) -> None:
         CONTROLLERS.validate(self.controller)
-        if self.forecaster not in FORECASTER_KINDS:
-            raise ValueError(f"unknown forecaster {self.forecaster!r}; "
-                             f"available: {FORECASTER_KINDS}")
+        FORECASTERS.validate(self.forecaster)
 
     @property
     def name(self) -> str:
@@ -164,13 +167,19 @@ class SweepResult:
     scenarios: List[ScenarioResult]
     wall_s: float
     n_steps: int
-    #: wall-clock and count of model fits / forecaster updates made by
-    #: policies that take part in the shared-bank hooks (none of the
-    #: baselines do, so both counts stay 0 in this slice)
+    #: wall-clock spent fitting GP models (shared batched refreshes plus any
+    #: lazy per-controller fits) and how many models were fitted
     model_update_wall_s: float = 0.0
     n_model_fits: int = 0
+    #: wall-clock the TSF forecasters cost (telemetry updates + rollout
+    #: reads; for the bank backend that is staging + the shared batched
+    #: flush/rollout passes) and how many stream-updates were applied
     forecast_update_wall_s: float = 0.0
     n_forecast_updates: int = 0
+    #: the wall of calls that built or loaded a kernel at first use, split
+    #: out of the two update walls above (0.0 when no call did)
+    model_update_compile_wall_s: float = 0.0
+    forecast_update_compile_wall_s: float = 0.0
 
     def by_name(self) -> Dict[str, ScenarioResult]:
         return {s.name: s for s in self.scenarios}
@@ -182,6 +191,10 @@ class SweepResult:
                 "n_model_fits": self.n_model_fits,
                 "forecast_update_wall_s": self.forecast_update_wall_s,
                 "n_forecast_updates": self.n_forecast_updates,
+                "model_update_compile_wall_s":
+                    self.model_update_compile_wall_s,
+                "forecast_update_compile_wall_s":
+                    self.forecast_update_compile_wall_s,
                 "scenarios": [s.summary() for s in self.scenarios]}
 
 
@@ -201,12 +214,20 @@ class SweepEngine:
         if not specs:
             raise ValueError("empty scenario grid")
         self.config = config if config is not None else EngineConfig()
-        for s in specs:
-            if getattr(CONTROLLERS.get(s.controller), "uses_tsf_bank", False):
-                raise ValueError(
-                    f"controller {s.controller!r} (scenario {s.name!r}) "
-                    f"needs the shared forecast bank, which this port does "
-                    f"not have yet")
+        # One error surface, before any work: with the shared-bank TSF path,
+        # every banked scenario's forecaster must be a kind the ForecastBank
+        # can pack (plugin kinds run on the scalar backend).
+        if self.config.forecast_backend == "bank":
+            for s in specs:
+                cls = CONTROLLERS.get(s.controller)
+                if getattr(cls, "uses_tsf_bank", False) \
+                        and s.forecaster not in FORECASTER_KINDS:
+                    raise ValueError(
+                        f"forecaster {s.forecaster!r} (scenario {s.name!r}) "
+                        f"is not supported by forecast_backend='bank'; "
+                        f"bankable kinds: {FORECASTER_KINDS}. Use "
+                        f"EngineConfig(forecast_backend='scalar') for "
+                        f"plugin forecasters.")
         dts = {s.trace.dt_s for s in specs}
         if len(dts) > 1:
             raise ValueError(f"all traces must share dt_s, got {sorted(dts)}")
@@ -231,6 +252,8 @@ class SweepEngine:
 
         #: the executor of the current/most recent run()
         self.executor: Optional[SweepExecutorBase] = None
+        self.forecast_bank: Optional[ForecastBank] = None
+        self.policies: List[object] = []
 
     @property
     def decision_interval_s(self) -> float:
@@ -251,13 +274,40 @@ class SweepEngine:
                          for cls, spec in zip(policy_classes, self.specs)]
         self.executor = ex = executor_cls(
             self.model, start_configs, seeds, dt=self.dt,
-            n_steps=self.n_steps, device=config.device)
+            n_steps=self.n_steps, device=config.device,
+            detector_backend=config.detector_backend)
 
-        policies = [cls(self, j, spec, config)
-                    for j, (cls, spec)
-                    in enumerate(zip(policy_classes, self.specs))]
+        # One shared ForecastBank on the config's device for every scenario
+        # whose policy opts in (``uses_tsf_bank``): the engine stages all due
+        # observations and the bank applies them in one batched pass when
+        # the next policy reads a forecast. The scalar backend gives each
+        # policy its own float64 NumPy zoo forecaster (reference oracle).
+        hp_horizon = config.resolved_hp().forecast_horizon
+        bank_rows = [j for j, cls in enumerate(policy_classes)
+                     if getattr(cls, "uses_tsf_bank", False)]
+        forecast_bank: Optional[ForecastBank] = None
+        tsf_views: Dict[int, object] = {}
+        if bank_rows and config.forecast_backend == "bank":
+            forecast_bank = ForecastBank(
+                [self.specs[j].forecaster for j in bank_rows],
+                horizon=hp_horizon, device=config.device)
+            tsf_views = {j: forecast_bank.view(r)
+                         for r, j in enumerate(bank_rows)}
+        elif bank_rows:
+            tsf_views = {j: make_forecaster(self.specs[j].forecaster,
+                                            backend="scalar")
+                         for j in bank_rows}
+        #: the shared forecast bank of the current/most recent run()
+        self.forecast_bank = forecast_bank
+
+        #: the policies of the current/most recent run(), one per scenario
+        self.policies = policies = [
+            cls(self, j, spec, config, tsf=tsf_views.get(j))
+            for j, (cls, spec) in enumerate(zip(policy_classes, self.specs))]
         model_update_wall = 0.0
+        model_compile_wall = 0.0
         n_model_fits = 0
+        forecast_wall = 0.0
         n_forecast_updates = 0
 
         pending: Dict[int, FailureRecord] = {}
@@ -317,7 +367,8 @@ class SweepEngine:
 
         def policy_block(t: float, i: int, active) -> None:
             """Controller decisions (event-scheduled, never per-step)."""
-            nonlocal model_update_wall, n_model_fits, n_forecast_updates
+            nonlocal model_update_wall, model_compile_wall, n_model_fits, \
+                n_forecast_updates
             pol_due = t >= policy_next
             if active is not None:
                 pol_due &= active
@@ -325,8 +376,10 @@ class SweepEngine:
                 return
             due = np.nonzero(pol_due)[0]
             # Two-phase telemetry ingestion for policies that opt in
-            # (``pending_ingest`` + ``ingest``): every due observation is
-            # staged before any controller reads a forecast.
+            # (``pending_ingest`` + ``ingest``): every due observation lands
+            # in the shared ForecastBank, which replays all queued ticks of
+            # all streams in one batched pass when the next policy reads a
+            # forecast (the scalar backend updates inline).
             due_obs = [(policies[j],
                         policies[j].pending_ingest(self, j, t, i))
                        for j in due
@@ -340,8 +393,15 @@ class SweepEngine:
             banks = [b for j in due
                      if (b := getattr(policies[j], "bank", None)) is not None]
             if banks:
-                n_fit, fit_wall = type(banks[0]).batch_refresh(banks)
-                model_update_wall += fit_wall
+                # First-use split: a refresh that built or loaded a kernel
+                # books its wall separately, so steady-state numbers stay
+                # comparable across cold and warm processes.
+                loaded0 = _build.n_loaded()
+                n_fit, fit_wall = ModelBank.batch_refresh(banks)
+                if _build.n_loaded() > loaded0:
+                    model_compile_wall += fit_wall
+                else:
+                    model_update_wall += fit_wall
                 n_model_fits += n_fit
             for j in due:
                 policy_next[j] = policies[j].act(self, j, t, i)
@@ -442,7 +502,28 @@ class SweepEngine:
         else:
             drive_ticks()
         wall = time.perf_counter() - t0
-        forecast_wall = sum(getattr(p, "tsf_wall_s", 0.0) for p in policies)
+        # Fold in lazy fits (segments first hit mid-act, cold starts).
+        for p in policies:
+            bank = getattr(p, "bank", None)
+            if bank is not None:
+                model_update_wall += bank.fit_wall_s
+                model_compile_wall += bank.compile_wall_s
+                n_model_fits += bank.n_fits
+        # TSF wall: every policy accumulates its own forecaster wall
+        # (updates, flushes triggered by reads, rollouts). Any leftover
+        # staged samples are flushed here, outside all controller timers,
+        # so they are timed explicitly.
+        if forecast_bank is not None:
+            t0_f = time.perf_counter()
+            forecast_bank.flush()
+            forecast_wall += time.perf_counter() - t0_f
+        forecast_wall += sum(getattr(p, "tsf_wall_s", 0.0) for p in policies)
+        # The bank books each pass that built or loaded a kernel as compile
+        # wall; those passes are nested inside the controller timers summed
+        # above, so the steady-state wall is the total minus that share.
+        forecast_compile_wall = (forecast_bank.compile_wall_s
+                                 if forecast_bank is not None else 0.0)
+        forecast_wall = max(forecast_wall - forecast_compile_wall, 0.0)
 
         results = []
         for j, spec in enumerate(self.specs):
@@ -469,7 +550,10 @@ class SweepEngine:
                            model_update_wall_s=model_update_wall,
                            n_model_fits=n_model_fits,
                            forecast_update_wall_s=forecast_wall,
-                           n_forecast_updates=n_forecast_updates)
+                           n_forecast_updates=n_forecast_updates,
+                           model_update_compile_wall_s=model_compile_wall,
+                           forecast_update_compile_wall_s=(
+                               forecast_compile_wall))
 
 
 def run_sweep(specs: Sequence[ScenarioSpec], *,
@@ -477,9 +561,12 @@ def run_sweep(specs: Sequence[ScenarioSpec], *,
               model: Optional[ClusterModel] = None) -> SweepResult:
     """Execute a scenario grid in one invocation.
 
-    ``config`` defaults to ``EngineConfig()``: the ``"fused"`` engine on
-    ``device="cuda"``, which raises where CUDA is missing; pass
-    ``EngineConfig(device="cpu")`` to run it on the CPU, or
-    ``sim_backend="batched"`` for the NumPy host engine.
+    ``config`` defaults to ``EngineConfig()``: the ``"fused"`` engine, the
+    shared forecast bank and the GP bank on ``device="cuda"``, which raises
+    where CUDA is missing; pass ``EngineConfig(device="cpu")`` to run on the
+    CPU, or ``sim_backend="batched"`` for the NumPy host engine. Demeter
+    scenarios (``controller="demeter"``) take their GP-fit and TSF paths
+    from ``config.fit_backend`` / ``config.forecast_backend`` and their
+    forecaster kind from :attr:`ScenarioSpec.forecaster`.
     """
     return SweepEngine(specs, config=config, model=model).run()

@@ -3,8 +3,9 @@
 The system has no weights: what the reference and the port share is
 simulation state and model parameters. These helpers take plain Python and
 NumPy values — ``dataclasses.asdict`` of the reference's ``ClusterModel``
-and ``JobConfig``, and the fused engine's device state as NumPy arrays —
-so the conversion on the reference side needs nothing of this package.
+and ``JobConfig``, the fused engine's device state, a forecast-bank
+family's state and parameters, and a fitted GP's arrays — so the conversion
+on the reference side needs nothing of this package.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
+from .core.forecast_bank import ForecastBank
+from .core.gp import GP
 from .dsp.fused import DET_ORDER
 from .dsp.simulator import ClusterModel, JobConfig
 
@@ -64,3 +67,41 @@ def fused_state_from_arrays(arrays: Mapping[str, np.ndarray],
                              f"lag's S rows, got {a.shape}")
         out[name] = torch.tensor(a, dtype=dtype, device=device)
     return out
+
+
+def forecast_family_from_arrays(bank: ForecastBank, kind: str,
+                                state: Mapping[str, np.ndarray],
+                                params: Mapping[str, np.ndarray]) -> None:
+    """Load one family of ``bank`` from NumPy arrays named like the
+    reference's ``_ArimaState``/``_HoltState``/``_SNaiveState`` and their
+    params (a ``NamedTuple._asdict()`` of NumPy copies). Rows beyond the
+    family's stream count (the reference pads its stream axis to a power of
+    two) are dropped; the trailing shapes must match. The bank's cached
+    forecasts are dropped too."""
+    fam = bank.family(kind)
+    new = []
+    for group, arrays in ((fam.state, state), (fam.params, params)):
+        names = set(group._fields)
+        if set(arrays) != names:
+            raise ValueError(f"{kind} expects arrays {sorted(names)}, got "
+                             f"{sorted(arrays)}")
+        new.append([torch.as_tensor(np.array(arrays[f])[:fam.n],
+                                    dtype=buf.dtype, device=buf.device)
+                    for f, buf in zip(group._fields, group)])
+    fam.load_state(*new)
+    bank._drop_family_cache(kind)
+
+
+def gp_from_arrays(x: np.ndarray, y_mean: float, y_std: float,
+                   theta: np.ndarray, chol: np.ndarray,
+                   alpha: np.ndarray) -> GP:
+    """A port :class:`~repro_torch.core.gp.GP` from a fitted reference GP's
+    fields, with their NumPy dtypes kept."""
+    n = np.shape(alpha)[0]
+    if np.shape(x)[0] != n or np.shape(chol) != (n, n):
+        raise ValueError(f"x {np.shape(x)}, chol {np.shape(chol)} and alpha "
+                         f"{np.shape(alpha)} disagree on n")
+    return GP(x=np.array(x), y_mean=float(y_mean), y_std=float(y_std),
+              theta=np.array(theta), chol=np.array(chol),
+              alpha=np.array(alpha))
+

@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -36,6 +36,9 @@ _D = ctypes.c_double
 SIGNATURES = {
     "fused_tick": ("fused_tick_launch",
                    [_C] * 8 + [_D, _D, _D, ctypes.c_int64] + [_C] * 6),
+    "rls_update": ("rls_update_launch",
+                   [_C] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+                   + [_C] * 3),
 }
 
 
@@ -67,18 +70,36 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the library's path. The compiler's output (``-Xptxas -v``:
     registers, spills) is kept beside the library as ``<lib>.log``."""
-    out = library_path(name)
-    if out.exists():
+    return build_all([name])[name]
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile every named source that is not built yet, one ``nvcc`` each,
+    all started together; returns each library's path. Raises after every
+    compiler has finished if any of them failed."""
+    out = {name: library_path(name) for name in names}
+    todo = [name for name in names if not out[name].exists()]
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = nvcc_command(find_nvcc(), CSRC_DIR / f"{name}.cu", tmp)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)          # atomic: concurrent builders both succeed
+    nvcc = find_nvcc()
+    procs = {}
+    for name in todo:
+        tmp = out[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = nvcc_command(nvcc, CSRC_DIR / f"{name}.cu", tmp)
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for name, (cmd, tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu ({' '.join(cmd)}):\n"
+                          f"{stdout}\n{stderr}")
+            continue
+        out[name].with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out[name])   # atomic: concurrent builders both succeed
+    if errors:
+        raise RuntimeError("\n".join(errors))
     return out
 
 
@@ -91,3 +112,13 @@ def load(name: str) -> ctypes.CDLL:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return lib
+
+
+def n_loaded() -> int:
+    """How many kernel libraries this process has built or loaded so far.
+
+    Growth between two samples means a call in between paid a kernel's
+    first-use build and load; callers book that call's wall as compile
+    wall (the port's counterpart of the reference's jit-cache growth)."""
+    return load.cache_info().currsize
+

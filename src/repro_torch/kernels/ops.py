@@ -10,7 +10,20 @@ from __future__ import annotations
 import torch
 
 from . import fused_tick as _fused_tick
-from .ref import fused_tick_ref
+from . import rls_update as _rls_update
+from .ref import fused_tick_ref, rls_rank1_update_ref
+
+
+def rls_rank1_update(P: torch.Tensor, phi: torch.Tensor, lam: torch.Tensor):
+    """One batched rank-1 RLS step; see
+    :func:`repro_torch.kernels.ref.rls_rank1_update_ref` for the function
+    and the shapes."""
+    if P.device.type == "cpu":
+        return rls_rank1_update_ref(P, phi, lam)
+    if P.device.type == "cuda":
+        return _rls_update.rls_rank1_update(P, phi, lam)
+    raise ValueError(f"rls_rank1_update takes CPU or CUDA tensors, got a "
+                     f"tensor on {P.device}")
 
 
 def fused_tick(lag: torch.Tensor, lag_add: torch.Tensor, rates: torch.Tensor,

@@ -5,7 +5,9 @@
 * ``chip_smoke.py`` refuses to run without a CUDA device and prints no
   result, also from a directory holding nothing else of the repo;
 * the port keeps registries of its own: the reference's registries gain
-  no entries from it.
+  no entries from it;
+* every entry point that places tensors defaults to the card and raises
+  without one, instead of running on the CPU unasked.
 """
 import re
 import shutil
@@ -28,6 +30,7 @@ def _env():
 
 
 @pytest.mark.parametrize("module", ["repro_torch", "repro_torch.dsp",
+                                    "repro_torch.core",
                                     "repro_torch.interop"])
 def test_port_imports_neither_jax_nor_reference(module):
     code = (f"import sys, {module}\n"
@@ -68,10 +71,60 @@ def test_chip_smoke_fails_without_the_card(where, tmp_path):
 
 
 def test_port_registries_are_its_own():
-    from repro_torch.core.registry import CONTROLLERS, SIM_ENGINES
+    from repro_torch.core.registry import (CONTROLLERS, DETECTOR_BACKENDS,
+                                           FIT_BACKENDS, FORECAST_BACKENDS,
+                                           FORECASTERS, SIM_ENGINES)
     from repro_torch.core import EngineConfig
     EngineConfig(device="cpu")           # registers every built-in
     assert SIM_ENGINES.available() == ("batched", "fused")
-    assert CONTROLLERS.available() == ("ds2", "reactive", "static")
+    assert CONTROLLERS.available() == ("demeter", "ds2", "reactive", "static")
+    assert FORECASTERS.available() == ("arima", "holt", "seasonal")
+    assert FIT_BACKENDS.available() == ("bank", "scalar")
+    assert FORECAST_BACKENDS.available() == ("bank", "scalar")
+    assert DETECTOR_BACKENDS.available() == ("scalar",)
     assert "repro.core.registry" not in sys.modules or \
         "torch" not in sys.modules["repro.core.registry"].SIM_ENGINES
+
+
+def _builders():
+    """Each entry point that places tensors, called without ``device=``."""
+    import numpy as np
+    from repro_torch.core import (DemeterController, ForecastBank, GP, GPBank,
+                                  ModelBank, SegmentStore, batched_posterior,
+                                  paper_flink_space)
+    from repro_torch.dsp import (BatchedSweepExecutor, ClusterModel,
+                                 FusedSweepExecutor, JobConfig)
+    x = np.random.default_rng(0).uniform(0, 1, (4, 2))
+    y = np.array([0.0, 1.0, 0.5, 2.0])
+    gp = GP(x=x, y_mean=0.0, y_std=1.0, theta=np.zeros(4, np.float32),
+            chol=np.eye(4, dtype=np.float32), alpha=np.zeros(4, np.float32))
+
+    class Executor:
+        def allocated_cost(self, c):
+            return 1.0
+
+    executor_args = (ClusterModel(), [JobConfig()] * 2, [0, 1])
+    return {
+        "FusedSweepExecutor": lambda: FusedSweepExecutor(
+            *executor_args, dt=5.0, n_steps=4),
+        "BatchedSweepExecutor": lambda: BatchedSweepExecutor(
+            *executor_args, dt=5.0, n_steps=4),
+        "ForecastBank": lambda: ForecastBank(["arima", "holt"]),
+        "GPBank.fit": lambda: GPBank.fit([(x, y)]),
+        "batched_posterior": lambda: batched_posterior([gp], x),
+        "ModelBank": lambda: ModelBank(SegmentStore(10_000.0)),
+        "DemeterController": lambda: DemeterController(paper_flink_space(),
+                                                       Executor()),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(
+    ["FusedSweepExecutor", "BatchedSweepExecutor", "ForecastBank",
+     "GPBank.fit", "batched_posterior", "ModelBank", "DemeterController"]))
+def test_entry_points_default_to_the_card(entry):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _builders()[entry]()
+

@@ -62,7 +62,8 @@ def port_specs(ref_specs):
     return [ScenarioSpec(trace=tw.Trace(rates=np.array(s.trace.rates),
                                         dt_s=s.trace.dt_s, name=s.trace.name),
                          controller=s.controller, seed=s.seed,
-                         failures=_port_failures(s.failures), label=s.label)
+                         failures=_port_failures(s.failures), label=s.label,
+                         forecaster=s.forecaster)
             for s in ref_specs]
 
 
@@ -187,8 +188,12 @@ def test_run_sweep_defaults_to_the_card():
 
 def test_unknown_controller_lists_the_registered_ones():
     trace = tw.make_trace("diurnal", duration_s=60.0)
-    with pytest.raises(ValueError, match=r"unknown controller 'demeter'; "
-                       r"available: \('ds2', 'reactive', 'static'\)"):
-        ScenarioSpec(trace=trace, controller="demeter")
+    with pytest.raises(ValueError, match=r"unknown controller 'pid'; "
+                       r"available: \('demeter', 'ds2', 'reactive', "
+                       r"'static'\)"):
+        ScenarioSpec(trace=trace, controller="pid")
+    with pytest.raises(ValueError, match=r"unknown forecaster 'prophet'; "
+                       r"available: \('arima', 'holt', 'seasonal'\)"):
+        ScenarioSpec(trace=trace, controller="demeter", forecaster="prophet")
     with pytest.raises(ValueError, match="unknown engine 'torch'"):
         EngineConfig(sim_backend="torch")
