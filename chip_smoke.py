@@ -8,8 +8,8 @@ Phases, each of which exits non-zero on failure:
 2. build: compiles every kernel of the path from ``src/repro_torch/csrc``,
    one ``nvcc`` per source, all started together;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the main paths' shapes and larger ones, with CUDA-event times:
-   ``fused_tick`` (K2) and ``rls_update`` (K1, float64 and float32);
+   at the shapes both main paths give it and larger ones, with CUDA-event
+   times: ``fused_tick`` (K2) and ``rls_update`` (K1, float64 and float32);
 4. baseline path: ``SweepEngine``/``run_sweep`` over a baseline-controller
    grid (traces ysb and tsw x static/reactive/ds2 x seeds 0-47 = 288
    scenarios, the paper's 18 h at dt = 5 s, a failure every 45 minutes) on
@@ -31,15 +31,14 @@ Phases, each of which exits non-zero on failure:
    at rtol 1e-9 with equal reconfiguration, fit and forecast-update counts.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
-``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
+``kernels`` line reports each kernel's launches on the Demeter main path
+beside its times at that path's width.
 
     python3 chip_smoke.py                     # from the root of a checkout
-    python3 chip_smoke.py --demeter-seeds 3 --phases 6   # a wider Demeter
-                                                         # main path alone
 """
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import statistics
@@ -57,7 +56,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 FP32_OPS_PER_S = 67e12
 
-#: Row counts the fused-tick check uses; 288 is the baseline path's width.
+#: Row counts the fused-tick check uses; 288 is the baseline path's width,
+#: and the Demeter main path's own row count is added.
 KERNEL_ROWS = (3, 37, 288, 65_536)
 BASELINE_ROWS = 288
 LAM, THRESH, DT = 0.995, 3.0, 5.0
@@ -644,17 +644,7 @@ def demeter_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--demeter-seeds", type=int, default=DEMETER_SEEDS,
-                    help="paper seeds of the Demeter main path (2 "
-                         "scenarios each; default %(default)s)")
-    ap.add_argument("--phases", default="3,4,5,6,7",
-                    help="comma-separated phases to run after the "
-                         "environment and the build (default %(default)s); "
-                         "the kernels line needs phases 3 and 6")
-    args = ap.parse_args(argv)
-    phases = {int(p) for p in args.phases.split(",") if p}
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -701,13 +691,16 @@ def main(argv=None) -> int:
                 flush=True)
 
     # -- 3. kernels against their plain versions -----------------------------
+    # the Demeter main path's widths: K2 steps every scenario, K1 every
+    # ARIMA stream of the forecast bank
+    specs = demeter_specs(DEMETER_SEEDS)
+    main_tick_rows = len(specs)
+    main_rls_rows = sum(1 for s in specs if s.forecaster == "arima")
     tick_rows, rls_rows = {}, {}
-    main_rows = sum(1 for s in demeter_specs(args.demeter_seeds)
-                    if s.forecaster == "arima")
-    for n in KERNEL_ROWS if 3 in phases else ():
+    for n in sorted({main_tick_rows, *KERNEL_ROWS}):
         tick_rows[n] = r = check_fused_tick(n)
         print("kernel fused_tick " + json.dumps(r), flush=True)
-    for B in sorted({main_rows, *RLS_ROWS}) if 3 in phases else ():
+    for B in sorted({main_rls_rows, *RLS_ROWS}):
         for k in RLS_ORDERS:
             for dtype in (torch.float64, torch.float32):
                 r = check_rls(B, k, dtype)
@@ -716,38 +709,29 @@ def main(argv=None) -> int:
     print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the baseline path ------------------------------------------------
-    if 4 in phases:
-        baseline_path()
-        print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    baseline_path()
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 5. components on the card -------------------------------------------
-    if 5 in phases:
-        fb = check_forecast_bank("cuda")
-        print("component forecast_bank " + json.dumps(fb), flush=True)
-        gb = check_gp_bank("cuda")
-        print("component gp_bank " + json.dumps(gb), flush=True)
-        picks = check_selection("cuda")
-        print(f"component selection: same batches {picks}", flush=True)
-        print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+    fb = check_forecast_bank("cuda")
+    print("component forecast_bank " + json.dumps(fb), flush=True)
+    gb = check_gp_bank("cuda")
+    print("component gp_bank " + json.dumps(gb), flush=True)
+    picks = check_selection("cuda")
+    print(f"component selection: same batches {picks}", flush=True)
+    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 6. the Demeter main path --------------------------------------------
-    if 6 in phases:
-        main_path = demeter_main_path(args.demeter_seeds)
-        print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    main_path = demeter_main_path(DEMETER_SEEDS)
+    print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 7. the Demeter path, card against CPU -------------------------------
-    if 7 in phases:
-        demeter_card_vs_cpu()
-        print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+    demeter_card_vs_cpu()
+    print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
-    if not {3, 6} <= phases:
-        print(f"total {time.perf_counter() - t_start:.1f} s (phases "
-              f"{sorted(phases)}; no kernels line without phases 3 and 6)")
-        return 0
-
-    # -- 8. summary lines ----------------------------------------------------
-    tick = tick_rows[BASELINE_ROWS]
-    rls = rls_rows[(main_rows, MAIN_K, "float64")]
+    # -- 8. summary lines: launches and times from the Demeter main path ----
+    tick = tick_rows[main_tick_rows]
+    rls = rls_rows[(main_rls_rows, MAIN_K, "float64")]
     print(f"Demeter path launches {main_path['launches']}")
     kernels = [{
         "name": "fused_tick", "route": "cuda",

@@ -24,7 +24,6 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..kernels import build as _build
 from .acquisition import ehvi_2d, hypervolume_2d, select_profiling_batch
 from .config_space import ConfigSpace
 from .executor import EngineConfig, resolve_device
@@ -128,10 +127,6 @@ class ModelBank:
     fit_backend: str = "bank"            # "bank" | "scalar"
     device: str = "cuda"
     fit_wall_s: float = 0.0
-    #: wall of lazy fits that built or loaded a kernel at first use — kept
-    #: out of ``fit_wall_s`` so steady-state model-update cost is reported
-    #: without first-use pollution
-    compile_wall_s: float = 0.0
     n_fits: int = 0
     _gps: Dict[Tuple[int, str], Tuple[int, int, Optional[GP]]] = field(
         default_factory=dict)            # key -> (version, n_fit, gp)
@@ -176,16 +171,9 @@ class ModelBank:
             return payload
         x, y = payload
         t0 = time.perf_counter()
-        loaded0 = _build.n_loaded()
         fitter = FIT_BACKENDS.get(self.fit_backend)
         g = fitter([(x, y)], [self._seed(segment, metric)], self.device)[0]
-        wall = time.perf_counter() - t0
-        # A fit that built or loaded a kernel paid its first use: book it
-        # separately so fit_wall_s stays a steady-state number.
-        if _build.n_loaded() > loaded0:
-            self.compile_wall_s += wall
-        else:
-            self.fit_wall_s += wall
+        self.fit_wall_s += time.perf_counter() - t0
         self.n_fits += 1
         self._install(segment, metric, len(y), g)
         return g

@@ -35,7 +35,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import build as _build
 from ..kernels import ops
 from .executor import resolve_device
 from .forecast import (ERR_WINDOW, FORECASTER_DEFAULTS, FORECASTER_KINDS,
@@ -655,22 +654,10 @@ class ForecastBank:
             self._fams[kind] = _FAMILY_BANKS[kind](
                 [kw for _, kw in members], self.device)
         self._cache: Dict[object, np.ndarray] = {}
-        #: wall-clock spent in batched update / rollout passes; the walls of
-        #: passes that built or loaded a kernel at first use land in
-        #: ``compile_wall_s`` instead (first-use split)
+        #: wall-clock spent in batched update / rollout passes
         self.update_wall_s = 0.0
         self.rollout_wall_s = 0.0
-        self.compile_wall_s = 0.0
         self.n_updates = 0
-
-    def _book_wall(self, attr: str, t0: float, loaded0: int) -> None:
-        """Accumulate a pass's wall into ``attr``, or into
-        ``compile_wall_s`` when the pass built or loaded a kernel."""
-        wall = time.perf_counter() - t0
-        if _build.n_loaded() > loaded0:
-            self.compile_wall_s += wall
-        else:
-            setattr(self, attr, getattr(self, attr) + wall)
 
     @property
     def n_streams(self) -> int:
@@ -703,13 +690,12 @@ class ForecastBank:
         if not any(f.has_staged for f in self._fams.values()):
             return 0
         t0 = time.perf_counter()
-        loaded0 = _build.n_loaded()
         n = 0
         for kind, fam in self._fams.items():
             if fam.has_staged:
                 n += fam.flush()
                 self._drop_family_cache(kind)
-        self._book_wall("update_wall_s", t0, loaded0)
+        self.update_wall_s += time.perf_counter() - t0
         self.n_updates += n
         return n
 
@@ -739,9 +725,8 @@ class ForecastBank:
         f = self._fams[fam]
         if f.has_staged:
             t0 = time.perf_counter()
-            loaded0 = _build.n_loaded()
             n, out = f.flush_and_roll(self.horizon)
-            self._book_wall("update_wall_s", t0, loaded0)
+            self.update_wall_s += time.perf_counter() - t0
             self.n_updates += n
             self._drop_family_cache(fam)
             self._cache[fam] = out
@@ -749,9 +734,8 @@ class ForecastBank:
         cached = self._cache.get(fam)
         if cached is None:
             t0 = time.perf_counter()
-            loaded0 = _build.n_loaded()
             cached = f.rollout(self.horizon)
-            self._book_wall("rollout_wall_s", t0, loaded0)
+            self.rollout_wall_s += time.perf_counter() - t0
             self._cache[fam] = cached
         return cached
 
@@ -761,9 +745,8 @@ class ForecastBank:
             return self._cached_rollout(fam)[i, :steps].copy()
         self.flush()
         t0 = time.perf_counter()
-        loaded0 = _build.n_loaded()
         out = self._fams[fam].rollout(steps)[i]
-        self._book_wall("rollout_wall_s", t0, loaded0)
+        self.rollout_wall_s += time.perf_counter() - t0
         return out
 
     def binned_row(self, row: int, horizon: int, bins: int) -> float:

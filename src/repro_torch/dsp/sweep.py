@@ -176,8 +176,9 @@ class SweepResult:
     #: flush/rollout passes) and how many stream-updates were applied
     forecast_update_wall_s: float = 0.0
     n_forecast_updates: int = 0
-    #: the wall of calls that built or loaded a kernel at first use, split
-    #: out of the two update walls above (0.0 when no call did)
+    #: the wall of building and loading a layer's kernel at its first use
+    #: in the process, split out of that layer's update wall above (0.0
+    #: when the kernel was already loaded; the GP path launches none)
     model_update_compile_wall_s: float = 0.0
     forecast_update_compile_wall_s: float = 0.0
 
@@ -305,7 +306,6 @@ class SweepEngine:
             cls(self, j, spec, config, tsf=tsf_views.get(j))
             for j, (cls, spec) in enumerate(zip(policy_classes, self.specs))]
         model_update_wall = 0.0
-        model_compile_wall = 0.0
         n_model_fits = 0
         forecast_wall = 0.0
         n_forecast_updates = 0
@@ -367,8 +367,7 @@ class SweepEngine:
 
         def policy_block(t: float, i: int, active) -> None:
             """Controller decisions (event-scheduled, never per-step)."""
-            nonlocal model_update_wall, model_compile_wall, n_model_fits, \
-                n_forecast_updates
+            nonlocal model_update_wall, n_model_fits, n_forecast_updates
             pol_due = t >= policy_next
             if active is not None:
                 pol_due &= active
@@ -393,15 +392,8 @@ class SweepEngine:
             banks = [b for j in due
                      if (b := getattr(policies[j], "bank", None)) is not None]
             if banks:
-                # First-use split: a refresh that built or loaded a kernel
-                # books its wall separately, so steady-state numbers stay
-                # comparable across cold and warm processes.
-                loaded0 = _build.n_loaded()
                 n_fit, fit_wall = ModelBank.batch_refresh(banks)
-                if _build.n_loaded() > loaded0:
-                    model_compile_wall += fit_wall
-                else:
-                    model_update_wall += fit_wall
+                model_update_wall += fit_wall
                 n_model_fits += n_fit
             for j in due:
                 policy_next[j] = policies[j].act(self, j, t, i)
@@ -496,6 +488,7 @@ class SweepEngine:
                 policy_block(t, i_evt, None if uniform else (t < end_time))
                 i = i_evt + 1
 
+        load_wall0 = dict(_build.load_wall_s)
         t0 = time.perf_counter()
         if getattr(ex, "supports_intervals", False):
             drive_intervals()
@@ -507,7 +500,6 @@ class SweepEngine:
             bank = getattr(p, "bank", None)
             if bank is not None:
                 model_update_wall += bank.fit_wall_s
-                model_compile_wall += bank.compile_wall_s
                 n_model_fits += bank.n_fits
         # TSF wall: every policy accumulates its own forecaster wall
         # (updates, flushes triggered by reads, rollouts). Any leftover
@@ -518,11 +510,13 @@ class SweepEngine:
             forecast_bank.flush()
             forecast_wall += time.perf_counter() - t0_f
         forecast_wall += sum(getattr(p, "tsf_wall_s", 0.0) for p in policies)
-        # The bank books each pass that built or loaded a kernel as compile
-        # wall; those passes are nested inside the controller timers summed
-        # above, so the steady-state wall is the total minus that share.
-        forecast_compile_wall = (forecast_bank.compile_wall_s
-                                 if forecast_bank is not None else 0.0)
+        # First-use split: building and loading the forecast bank's kernel
+        # (K1) at its first launch in this process happened inside the TSF
+        # wall above; it is reported apart, so the steady-state wall stays
+        # comparable across cold and warm processes. The GP path launches
+        # no kernel of its own, so its compile wall is 0.0.
+        forecast_compile_wall = (_build.load_wall_s.get("rls_update", 0.0)
+                                 - load_wall0.get("rls_update", 0.0))
         forecast_wall = max(forecast_wall - forecast_compile_wall, 0.0)
 
         results = []
@@ -551,7 +545,7 @@ class SweepEngine:
                            n_model_fits=n_model_fits,
                            forecast_update_wall_s=forecast_wall,
                            n_forecast_updates=n_forecast_updates,
-                           model_update_compile_wall_s=model_compile_wall,
+                           model_update_compile_wall_s=0.0,
                            forecast_update_compile_wall_s=(
                                forecast_compile_wall))
 

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -40,6 +41,11 @@ SIGNATURES = {
                    [_C] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
                    + [_C] * 3),
 }
+
+#: Wall spent building (where needed) and loading each library in this
+#: process, by source name; set once, at the library's first use. The
+#: sweep reports a kernel's share as its layer's first-use compile wall.
+load_wall_s: Dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -106,19 +112,12 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with its entry point typed."""
+    t0 = time.perf_counter()
     lib = ctypes.CDLL(str(build(name)))
     fn_name, argtypes = SIGNATURES[name]
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    load_wall_s[name] = time.perf_counter() - t0
     return lib
-
-
-def n_loaded() -> int:
-    """How many kernel libraries this process has built or loaded so far.
-
-    Growth between two samples means a call in between paid a kernel's
-    first-use build and load; callers book that call's wall as compile
-    wall (the port's counterpart of the reference's jit-cache growth)."""
-    return load.cache_info().currsize
 
