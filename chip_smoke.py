@@ -28,17 +28,33 @@ Phases, each of which exits non-zero on failure:
    scenario, GP fits made, and K1 launched once per ARIMA tick replayed;
 7. the Demeter path, card against CPU: a 3-scenario, 2 h grid with the
    scalar GP fits, run on ``cuda`` and on ``cpu``; every scenario must agree
-   at rtol 1e-9 with equal reconfiguration, fit and forecast-update counts.
+   at rtol 1e-9 with equal reconfiguration, fit and forecast-update counts;
+8. the serving main path: qwen2-7b at full width in bfloat16 (random
+   weights from seed 0), ``ServingEngine(n_slots=16, max_len=4096)``
+   serving 32 requests with prompts of 256-2048 tokens and 64 new tokens
+   each; every request completes with 64 tokens, every logit is finite,
+   and the decode-attention kernel (K3, checked and timed in phase 3 at
+   these shapes beside ``scaled_dot_product_attention``) launches once per
+   layer and decode step;
+9. serving, card against CPU: qwen2-7b at full width but 2 layers, float32,
+   TF32 off, 4 short requests on ``cuda`` (K3) and on ``cpu`` (its plain
+   version); equal greedy tokens, or a first difference where the top-2
+   logit gap is below the logits' measured difference;
+10. autoscaled serving: ``run_autoscaled`` calibrates a full-width qwen2-7b
+    replica on the card and lets the Demeter controller (on the card) run
+    a simulated fleet for 3600 s.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
-``kernels`` line reports each kernel's launches on the Demeter main path
-beside its times at that path's width.
+``kernels`` line reports each kernel's launches on its own main path (K1
+and K2 on the Demeter path, K3 on the serving path) beside its times at
+that path's shapes.
 
     python3 chip_smoke.py                     # from the root of a checkout
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -75,13 +91,25 @@ MAIN_K = 9
 #: Demeter main path width: paper seeds (2 scenarios each; seed 0 alone is
 #: the paper's own two 18 h runs, §3.4, Figs. 5-6). On NVIDIA H100 80GB
 #: HBM3, 700.00 W the path took 75.0 s at 1 seed and 153.0 s at 3 (about
-#: 39 s a seed, nearly all host-bound GP fits), the rest of the script about
-#: 195 s: 4 seeds keep the whole run near 390 s, inside half the 1200-s
-#: limit even on a host 30% slower.
+#: 39 s a seed, nearly all host-bound GP fits); with the serving phases the
+#: whole script took 232.9 s and 359.6 s on two machines, so 4 seeds stay
+#: inside half the 1200-s limit even on a host 30% slower.
 DEMETER_SEEDS = 4
 
 SWEEP_ARRAYS = ("rates", "latencies", "usage_cpu", "usage_mem_mb", "workers",
                 "consumer_lag")
+
+#: The serving main path: qwen2-7b (28 layers, 28 query heads over 4 KV
+#: heads of 128) at full width in bfloat16, 16 slots of 4096 positions, 32
+#: requests of 256-2048 prompt tokens and 64 new tokens each.
+SERVE_ARCH = "qwen2_7b"
+SERVE_SLOTS, SERVE_MAX_LEN = 16, 4096
+SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW_TOKENS = 32, (256, 2048), 64
+#: K3's checks: the serving shapes in both dtypes, then a sweep over groups
+#: and head dims; bars against the plain version (which rounds the softmax
+#: weights to bf16 before the weighted sum, where the kernel keeps float32)
+ATTN_BARS = {"float32": 2e-5, "bfloat16": 2e-2}
+ATTN_SWEEP_GROUPS, ATTN_SWEEP_DIMS = (1, 4, 7), (64, 128, 256)
 
 
 def fail(msg: str) -> NoReturn:
@@ -236,6 +264,71 @@ def check_rls(B: int, k: int, dtype) -> dict:
                     (5 * k * k + 2 * k) * B,
                     FP64_OPS_PER_S if dtype == torch.float64
                     else FP32_OPS_PER_S)}
+
+
+def attention_operands(B: int, S: int, Hkv: int, G: int, D: int, dtype,
+                       seed: int = 0):
+    """Random decode-attention operands on the card, in the cache's layout,
+    with ragged lengths that include 0, 1 and S_max."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, shape), dtype=dtype,
+                               device="cuda")
+               for shape in ((B, 1, Hkv * G, D), (B, S, Hkv, D),
+                             (B, S, Hkv, D)))
+    lengths = rng.integers(1, S + 1, B)
+    lengths[:3] = [0, 1, S]
+    return q, k, v, torch.as_tensor(lengths, dtype=torch.int32,
+                                    device="cuda")
+
+
+def check_decode_attention(B: int, S: int, Hkv: int, G: int, D: int, dtype,
+                           timed: bool) -> dict:
+    """The CUDA decode attention against its plain version; with ``timed``
+    also its device and dispatch times, the plain version's, the bound and
+    ``scaled_dot_product_attention`` on the same inputs (the library call,
+    timed only: it reads the whole cache, under a length mask)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kmod
+    from repro_torch.kernels.ref import decode_attention_ref
+    q, k, v, lengths = attention_operands(B, S, Hkv, G, D, dtype)
+    got = kmod.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, k, v, lengths)
+    err = float((got.float() - want.float()).abs().max())
+    name = str(dtype).split(".")[-1]
+    label = f"decode_attention B={B} S={S} Hkv={Hkv} G={G} D={D} {name}"
+    if not err <= ATTN_BARS[name]:
+        fail(f"{label}: max abs error {err} exceeds {ATTN_BARS[name]}")
+    if got[0].any():
+        fail(f"{label}: a row of length 0 is not zero")
+    out = {"B": B, "S_max": S, "Hkv": Hkv, "G": G, "D": D, "dtype": name,
+           "max_abs_err": err}
+    call = lambda: kmod.decode_attention(q, k, v, lengths)  # noqa: E731
+    out["ms"] = device_ms(call)
+    if not timed:
+        return out
+    item = q.element_size()
+    valid = int(lengths.clamp(0, S).sum())
+    n_bytes = valid * Hkv * D * 2 * item + 2 * q.numel() * item \
+        + lengths.numel() * 4
+    # per valid position and query head: q.k and p.v, 2 D operations each
+    # (the softmax's few per position are not counted)
+    n_ops = 4 * D * valid * Hkv * G
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    plain = lambda: decode_attention_ref(q, k, v, lengths)  # noqa: E731
+    out.update({"valid_positions": valid, "bytes": n_bytes,
+                "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+                "dispatch_ms": host_ms(call),
+                "plain_dispatch_ms": host_ms(plain),
+                **bound(n_bytes, n_ops, FP32_OPS_PER_S)})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -644,6 +737,270 @@ def demeter_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving path
+# ---------------------------------------------------------------------------
+
+class LogitsWatch:
+    """Wraps the serving engine's ``prefill`` and ``decode_step`` for one
+    run: a device-side flag that every logit seen was finite (read once at
+    the end, so the engine's one sync per step stays its only one), and,
+    with ``keep``, a host copy of every call's logits."""
+
+    def __init__(self, keep: bool = False):
+        import torch
+        from repro_torch.serving import engine
+        self.engine, self.keep = engine, keep
+        self.finite = torch.ones((), dtype=torch.bool)
+        self.logits, self._undo = [], []
+        for name in ("prefill", "decode_step"):
+            fn = getattr(engine, name)
+            setattr(engine, name, self._wrap(fn))
+            self._undo.append((name, fn))
+
+    def _wrap(self, fn):
+        def watched(*args, **kwargs):
+            logits, cache = fn(*args, **kwargs)
+            if self.finite.device != logits.device:
+                self.finite = self.finite.to(logits.device)
+            self.finite &= logits.isfinite().all()
+            if self.keep:
+                self.logits.append(logits.float().cpu())
+            return logits, cache
+        return watched
+
+    def restore(self) -> bool:
+        """Undo the wrapping; returns whether every logit was finite."""
+        for name, fn in self._undo:
+            setattr(self.engine, name, fn)
+        return bool(self.finite)
+
+
+def serve(eng, prompts, max_tokens: int, keep_logits: bool = False):
+    """Submit every prompt at once and run the engine until all complete;
+    returns (wall seconds, the watch over its logits)."""
+    import torch
+    from repro_torch.serving import Request
+    watch = LogitsWatch(keep=keep_logits)
+    try:
+        t0 = time.perf_counter()
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(f"r{i}", pr, max_tokens=max_tokens,
+                               arrival_s=eng.clock()))
+        while eng.queue or eng.cache_mgr.active():
+            eng.admit()
+            eng.step()
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        finite = watch.restore()
+    if not finite:
+        fail("serving: a logit was not finite")
+    for i in range(len(prompts)):
+        out = eng.requests[f"r{i}"].output
+        if len(out) != max_tokens:
+            fail(f"serving: request r{i} produced {len(out)} tokens, not "
+                 f"{max_tokens}")
+    if eng.metrics.completed != len(prompts):
+        fail(f"serving: {eng.metrics.completed} of {len(prompts)} requests "
+             f"completed")
+    return wall, watch
+
+
+def decode_profile(eng, prompts, warmup: int = 3, steps: int = 5) -> dict:
+    """Fill every slot of ``eng`` with ``prompts``, then time ``steps``
+    full-batch decode steps on the host clock and trace the same number
+    under ``torch.profiler``: the device's busy time per step (the sum of
+    its kernels), its idle share of the step and the kernels that take
+    the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Request
+    for i, pr in enumerate(prompts):
+        eng.submit(Request(f"p{i}", pr, max_tokens=warmup + 2 * steps + 2,
+                           arrival_s=eng.clock()))
+    eng.admit()
+    for _ in range(warmup):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"step_ms": step_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / step_ms,
+            "top_kernels_ms_per_step": {
+                e.key[:60]: e.self_device_time_total / 1e3 / steps
+                for e in top}}
+
+
+def serving_main_path(device: str = "cuda") -> dict:
+    """Phase 8: qwen2-7b at full width on ``device``; returns K3's launches
+    and the path's numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.models import init_params, logits_from_hidden
+    from repro_torch.serving import ServingEngine
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=device)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = ServingEngine(cfg, model, n_slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, device=device)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                        SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    timers = LayerTimers()
+    timers.wrap(eng, "_prefill_into_slot", "prefill")
+    timers.wrap(eng, "step", "decode step")
+    k3.decode_attention.launches = 0
+    try:
+        wall, _ = serve(eng, prompts, SERVE_NEW_TOKENS)
+    finally:
+        timers.restore()
+    launches = k3.decode_attention.launches
+    steps = eng.metrics.decode_steps
+    if on_card and (launches != steps * cfg.n_layers or launches == 0):
+        fail(f"decode_attention launched {launches} times for {steps} decode "
+             f"steps x {cfg.n_layers} layers")
+    # the LM head alone at the decode batch, on the device, and a profile
+    # of full-batch decode steps
+    h = torch.randn(SERVE_SLOTS, 1, cfg.d_model, device=device,
+                    dtype=torch.bfloat16)
+    lm_head_ms = (device_ms(lambda: logits_from_hidden(model, h))
+                  if on_card else None)
+    profile = decode_profile(eng, prompts[:SERVE_SLOTS]) if on_card else None
+    out = {"arch": SERVE_ARCH, "params": n_params, "init_s": init_s,
+           "requests": SERVE_REQUESTS, "prompt_tokens": int(lens.sum()),
+           "new_tokens": SERVE_REQUESTS * SERVE_NEW_TOKENS, "wall_s": wall,
+           "decode_steps": steps,
+           "mean_step_s": float(np.mean(np.fromiter(
+               eng.metrics.step_times, float))),
+           "p95_latency_s": eng.metrics.p95_latency(),
+           "tokens_per_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall,
+           "layer_wall_s": timers.wall, "layer_calls": timers.calls,
+           "lm_head_ms": lm_head_ms, "decode_profile": profile,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if on_card else None),
+           "launches": {"decode_attention": launches}}
+    print("serving main path " + json.dumps(out), flush=True)
+    return out
+
+
+def first_token_difference(a, b):
+    """Where two runs' greedy picks first part, call by call and row by row:
+    ``(call, description, explained)``, with ``explained`` true when the
+    top-2 logit gap there (in the second run) is below the largest logit
+    difference of that row; ``(None, "", True)`` when every pick agrees."""
+    for c, (x, y) in enumerate(zip(a, b)):
+        for r in range(x.shape[0]):
+            if int(x[r].argmax()) == int(y[r].argmax()):
+                continue
+            top2 = y[r].topk(2).values
+            gap = float(top2[0] - top2[1])
+            diff = float((x[r] - y[r]).abs().max())
+            return c, (f"call {c} row {r}: {int(x[r].argmax())} vs "
+                       f"{int(y[r].argmax())}; top-2 gap {gap}, logit "
+                       f"difference {diff}"), gap < diff
+    return None, "", True
+
+
+def serving_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """Phase 9: the same weights and requests on the card (K3) and on the
+    CPU (its plain version), float32 with TF32 off."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    cfg = get_config(SERVE_ARCH).scaled(n_layers=2)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        first = init_params(cfg, seed=0, device=devices[0],
+                            dtype=torch.float32)
+        models = [first, copy.deepcopy(first).to(devices[1])]
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n))
+                   for n in rng.integers(16, 33, 4)]
+        runs = []
+        for dev, model in zip(devices, models):
+            eng = ServingEngine(cfg, model, n_slots=4, max_len=64,
+                                device=dev)
+            wall, watch = serve(eng, prompts, 8, keep_logits=True)
+            runs.append((wall, watch.logits,
+                         [eng.requests[f"r{i}"].output for i in range(4)]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    (card_wall, a, card_out), (cpu_wall, b, cpu_out) = runs
+    if len(a) != len(b):
+        fail(f"serving card vs CPU: {len(a)} vs {len(b)} model calls")
+    call, where, explained = first_token_difference(a, b)
+    # logits stay comparable up to the first differing pick
+    calls = len(a) if call is None else call + 1
+    rel = max(float((x - y).abs().max() / y.abs().max())
+              for x, y in zip(a[:calls], b[:calls]))
+    if card_out != cpu_out or call is not None:
+        print(f"serving card vs CPU: picks differ at {where}", flush=True)
+        if not explained:
+            fail(f"serving card vs CPU: picks differ beyond rounding: "
+                 f"{where}")
+    out = {"layers": cfg.n_layers, "requests": len(prompts),
+           "tokens_equal": card_out == cpu_out,
+           "max_rel_logit_diff": rel, "calls_compared": calls,
+           "wall_s": dict(zip(devices, (card_wall, cpu_wall)))}
+    print("serving card vs cpu " + json.dumps(out), flush=True)
+    return out
+
+
+def autoscaled_serving(device: str = "cuda") -> dict:
+    """Phase 10: ``run_autoscaled`` on ``device`` for 3600 simulated s."""
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_autoscaled
+    t0 = time.perf_counter()
+    res = run_autoscaled(get_config(SERVE_ARCH),
+                         types.SimpleNamespace(rate=8.0, duration_s=3600.0),
+                         device=device)
+    p = res["profile"]
+    for key in ("decode_step_s", "prefill_s"):
+        v = getattr(p, key)
+        if not (math.isfinite(v) and v > 0):
+            fail(f"autoscaled serving: calibrated {key} = {v}")
+    if not all(math.isfinite(v) for v in res["final_telemetry"].values()):
+        fail(f"autoscaled serving: telemetry {res['final_telemetry']}")
+    out = {"decode_step_s": p.decode_step_s, "prefill_s": p.prefill_s,
+           "base_slots": p.base_slots,
+           "reconfigurations": res["reconfigurations"],
+           "final_config": res["final_config"],
+           "final_telemetry": res["final_telemetry"],
+           "wall_s": time.perf_counter() - t0}
+    print("autoscaled serving " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -657,6 +1014,7 @@ def main() -> int:
         print(f"chip_smoke: cannot import repro_torch ({e}); run it from the "
               f"root of a checkout", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
     # The port's host-side work (scalar GP fits, posteriors on the host, the
@@ -678,7 +1036,7 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = build.build_all(["fused_tick", "rls_update"])
+    libs = build.build_all(["fused_tick", "rls_update", "decode_attention"])
     for lib_name in libs:
         build.load(lib_name)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
@@ -706,6 +1064,23 @@ def main() -> int:
                 r = check_rls(B, k, dtype)
                 rls_rows[(B, k, r["dtype"])] = r
                 print("kernel rls_update " + json.dumps(r), flush=True)
+    # K3 at the serving path's shapes (qwen2-7b: Hkv = 4, G = 7, D = 128;
+    # 16 slots of 4096), then over groups and head dims
+    serve_cfg = get_config(SERVE_ARCH)
+    serve_shape = (SERVE_SLOTS, SERVE_MAX_LEN, serve_cfg.n_kv_heads,
+                   serve_cfg.n_heads // serve_cfg.n_kv_heads,
+                   serve_cfg.resolved_head_dim)
+    attn_rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        r = check_decode_attention(*serve_shape, dtype, timed=True)
+        attn_rows[r["dtype"]] = r
+        print("kernel decode_attention " + json.dumps(r), flush=True)
+    for G in ATTN_SWEEP_GROUPS:
+        for D in ATTN_SWEEP_DIMS:
+            for dtype in (torch.bfloat16, torch.float32):
+                r = check_decode_attention(SERVE_SLOTS, SERVE_MAX_LEN, 4, G,
+                                           D, dtype, timed=False)
+                print("kernel decode_attention " + json.dumps(r), flush=True)
     print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the baseline path ------------------------------------------------
@@ -729,10 +1104,29 @@ def main() -> int:
     demeter_card_vs_cpu()
     print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
-    # -- 8. summary lines: launches and times from the Demeter main path ----
+    # -- 8. the serving main path -------------------------------------------
+    serve_path = serving_main_path()
+    gc.collect()                # the engine and its model, for phase 9's room
+    torch.cuda.empty_cache()
+    print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 9. serving, card against CPU ----------------------------------------
+    serving_card_vs_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 10. autoscaled serving ---------------------------------------------
+    autoscaled_serving()
+    print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 11. summary lines: each kernel's launches on its main path and its
+    # times at that path's shapes
     tick = tick_rows[main_tick_rows]
     rls = rls_rows[(main_rls_rows, MAIN_K, "float64")]
-    print(f"Demeter path launches {main_path['launches']}")
+    attn = attn_rows["bfloat16"]
+    print(f"Demeter path launches {main_path['launches']}; serving path "
+          f"launches {serve_path['launches']}")
     kernels = [{
         "name": "fused_tick", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_tick.cu",
@@ -752,9 +1146,19 @@ def main() -> int:
         "ms": rls["ms"], "plain_ms": rls["plain_ms"],
         "bound_ms": rls["bound_ms"], "bound_by": rls["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:71",
+        "launches": serve_path["launches"]["decode_attention"],
+        "max_abs_err": attn["max_abs_err"],
+        "ms": attn["ms"], "plain_ms": attn["plain_ms"],
+        "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
+        "library_ms": attn["library_ms"],
     }]
     for k in kernels:
-        for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
+        for key in ("ms", "plain_ms", "bound_ms", "max_abs_err") + (
+                ("library_ms",) if k["library_ms"] is not None else ()):
             if not math.isfinite(k[key]):
                 fail(f"{k['name']}: {key} is not finite")
         if not k["launches"] > 0:

@@ -1,8 +1,9 @@
-"""PyTorch/CUDA port of the Demeter sweep stack.
+"""PyTorch/CUDA port of the Demeter system.
 
 A package of its own beside ``repro`` (the JAX reference). It imports
-``torch`` and never ``jax`` or ``repro``. This slice runs ``run_sweep`` for
-baseline-controller grids (static / reactive / ds2) on the batched NumPy
-engine and on the fused engine, whose per-tick work is the hand-written
-CUDA kernel in ``csrc/fused_tick.cu``.
+``torch`` and never ``jax`` or ``repro``. It runs ``run_sweep`` for
+baseline-controller and Demeter grids (``dsp/``, ``core/``) and serves the
+dense decoders with Demeter autoscaling (``models/``, ``serving/``,
+``launch/serve.py``). Its hand-written CUDA kernels are in ``csrc/``, built
+at first use (``kernels/``).
 """

@@ -82,7 +82,8 @@ def resolve_device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {name!r} requested but torch.cuda.is_available() is "
-            f"False; pass EngineConfig(device='cpu') to run on the CPU")
+            f"False; pass device='cpu' (to a sweep: EngineConfig(device="
+            f"'cpu')) to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be a cuda or cpu device, got {name!r}")
     return device

@@ -1,16 +1,17 @@
 """State carried across from the reference package.
 
-The system has no weights: what the reference and the port share is
-simulation state and model parameters. These helpers take plain Python and
-NumPy values — ``dataclasses.asdict`` of the reference's ``ClusterModel``
-and ``JobConfig``, the fused engine's device state, a forecast-bank
-family's state and parameters, and a fitted GP's arrays — so the conversion
-on the reference side needs nothing of this package.
+What the reference and the port share is simulation state, model
+parameters and, for the serving stack, model configs and weights. These
+helpers take plain Python and NumPy values — ``dataclasses.asdict`` of the
+reference's ``ClusterModel``, ``JobConfig`` and ``ModelConfig``, the fused
+engine's device state, a forecast-bank family's state and parameters, a
+fitted GP's arrays, and a model's parameter tree — so the conversion on the
+reference side needs nothing of this package.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,6 +20,8 @@ from .core.forecast_bank import ForecastBank
 from .core.gp import GP
 from .dsp.fused import DET_ORDER
 from .dsp.simulator import ClusterModel, JobConfig
+from .models import config as model_config
+from .models.transformer import Transformer, init_params
 
 
 def _exact_fields(cls, d: Mapping[str, Any]) -> Dict[str, Any]:
@@ -105,3 +108,89 @@ def gp_from_arrays(x: np.ndarray, y_mean: float, y_std: float,
               theta=np.array(theta), chol=np.array(chol),
               alpha=np.array(alpha))
 
+
+
+#: the sub-config dataclass of each nested field of ``ModelConfig``
+_SUB_CONFIGS = {"moe": model_config.MoEConfig, "mla": model_config.MLAConfig,
+                "ssm": model_config.SSMConfig,
+                "hybrid": model_config.HybridConfig,
+                "frontend": model_config.FrontendConfig}
+#: the reference's attention implementations and the port's counterparts
+_ATTENTION_IMPLS = {"reference": "reference", "pallas": "kernel"}
+
+
+def model_config_from_dict(d: Mapping[str, Any]) -> model_config.ModelConfig:
+    """The port's ``ModelConfig`` from the reference's ``asdict``; its
+    ``attention_impl`` ``"pallas"`` becomes the port's ``"kernel"``."""
+    d = _exact_fields(model_config.ModelConfig, d)
+    for name, cls in _SUB_CONFIGS.items():
+        if d[name] is not None:
+            sub = _exact_fields(cls, d[name])
+            d[name] = cls(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in sub.items()})
+    if d["attention_impl"] not in _ATTENTION_IMPLS:
+        raise ValueError(f"unknown attention_impl {d['attention_impl']!r}; "
+                         f"expected one of {sorted(_ATTENTION_IMPLS)}")
+    d["attention_impl"] = _ATTENTION_IMPLS[d["attention_impl"]]
+    return model_config.ModelConfig(**d)
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = ""
+             ) -> Iterator[Tuple[str, np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", np.asarray(value)
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    """A NumPy array as a tensor of the same dtype; bfloat16 (an extension
+    dtype NumPy cannot hand to torch) passes through float32 exactly."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def load_reference_params(module: torch.nn.Module,
+                          params: Mapping[str, Any]) -> None:
+    """Copy a reference parameter tree into ``module`` in place: ``params``
+    holds NumPy leaves in nested dicts (or dotted names) that name the
+    module's ``state_dict`` entries exactly, with the same shapes."""
+    src = dict(_flatten(params))
+    state = module.state_dict()
+    missing, unknown = set(state) - set(src), set(src) - set(state)
+    if missing or unknown:
+        raise ValueError(f"parameter trees do not match: missing "
+                         f"{sorted(missing)}, unknown {sorted(unknown)}")
+    with torch.no_grad():
+        for name, tensor in state.items():
+            if tuple(src[name].shape) != tuple(tensor.shape):
+                raise ValueError(f"{name}: shape {src[name].shape}, the port "
+                                 f"expects {tuple(tensor.shape)}")
+            tensor.copy_(_to_torch(src[name]))
+
+
+def model_params_from_reference(cfg: model_config.ModelConfig,
+                                params: Mapping[str, Any],
+                                device="cuda") -> Transformer:
+    """A port model of ``cfg`` on ``device`` holding the reference's
+    parameters: ``params`` is the reference's parameter tree (nested dicts)
+    with NumPy leaves, as ``repro.models.init_params`` builds it. The
+    layer stack's ``(L, ...)`` leaves are unstacked into the port's
+    per-layer modules; the model's dtype is the leaves'."""
+    flat = dict(_flatten(params))
+    model = init_params(cfg, device=device,
+                        dtype=_to_torch(flat["final_norm.scale"]).dtype)
+    src = {}
+    for name, a in flat.items():
+        if name.startswith("stack."):
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name}: {a.shape[0]} layers stacked, the "
+                                 f"config has {cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                src[f"blocks.{i}.{name[len('stack.'):]}"] = a[i]
+        else:
+            src[name] = a
+    load_reference_params(model, src)
+    return model

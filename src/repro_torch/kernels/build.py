@@ -40,6 +40,9 @@ SIGNATURES = {
     "rls_update": ("rls_update_launch",
                    [_C] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
                    + [_C] * 3),
+    "decode_attention": ("decode_attention_launch",
+                         [_C] * 5 + [ctypes.c_int64, ctypes.c_int64]
+                         + [ctypes.c_int] * 4 + [_C]),
 }
 
 #: Wall spent building (where needed) and loading each library in this

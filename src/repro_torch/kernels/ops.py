@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import torch
 
+from . import decode_attention as _decode_attention
 from . import fused_tick as _fused_tick
 from . import rls_update as _rls_update
-from .ref import fused_tick_ref, rls_rank1_update_ref
+from .ref import decode_attention_ref, fused_tick_ref, rls_rank1_update_ref
 
 
 def rls_rank1_update(P: torch.Tensor, phi: torch.Tensor, lam: torch.Tensor):
@@ -39,3 +40,17 @@ def fused_tick(lag: torch.Tensor, lag_add: torch.Tensor, rates: torch.Tensor,
         return _fused_tick.fused_tick(*args)
     raise ValueError(f"fused_tick takes CPU or CUDA tensors, got a tensor "
                      f"on {lag.device}")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths):
+    """One-token grouped-query attention over each row's first
+    ``lengths[b]`` cache entries; see
+    :func:`repro_torch.kernels.ref.decode_attention_ref` for the function
+    and the shapes."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, lengths)
+    if q.device.type == "cuda":
+        return _decode_attention.decode_attention(q, k, v, lengths)
+    raise ValueError(f"decode_attention takes CPU or CUDA tensors, got a "
+                     f"tensor on {q.device}")

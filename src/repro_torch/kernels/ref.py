@@ -7,7 +7,7 @@ CUDA kernel against its plain version on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -56,3 +56,28 @@ def fused_tick_ref(lag: torch.Tensor, lag_add: torch.Tensor,
     gain, pnew = rls_rank1_update_ref(P, phi, torch.full_like(y, lam))
     w2 = w + gain * err[:, None]
     return new_lag, w2, pnew, err, flag
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: Union[int, torch.Tensor]) -> torch.Tensor:
+    """One-token grouped-query attention over each row's first
+    ``lengths[b]`` cache entries: the model's plain attention
+    (:func:`repro_torch.models.attention.sdpa_reference`, which casts the
+    softmax weights to v's dtype before the weighted sum; the CUDA kernel
+    keeps them in float32), with rows of length 0 set to zeros.
+
+    q: ``(B, 1, Hq, D)``; k, v: ``(B, S_max, Hkv, D)`` with ``Hq = G·Hkv``
+    (query head ``h·G + g`` reads KV head ``h``); lengths: an int, a 0-d
+    tensor or ``(B,)``, clamped to ``[0, S_max]``. Returns ``(B, 1, Hq, D)``.
+
+    A row of length 0 returns zeros, as the reference's Pallas kernel does
+    (it skips every block). The reference's oracle
+    ``repro/kernels/ref.py::decode_attention_ref`` returns the mean of all
+    of V there instead, since it masks every score and then normalises; the
+    two agree at every length >= 1, and serving never asks for length 0.
+    """
+    from ..models.attention import sdpa_reference  # models import kernels
+    lengths = torch.as_tensor(lengths, device=q.device)
+    out = sdpa_reference(q, k, v, causal=False, kv_valid_len=lengths)
+    empty = (lengths <= 0).reshape(-1, 1, 1, 1)
+    return out.masked_fill(empty, 0.0)

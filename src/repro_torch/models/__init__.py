@@ -1,0 +1,15 @@
+"""The model zoo's configuration schema for all 10 architectures, and the
+dense decoders built from it (the other families follow in a later
+slice)."""
+from .config import (FrontendConfig, HybridConfig, MLAConfig, ModelConfig,
+                     MoEConfig, SSMConfig, param_count)
+from .transformer import (Transformer, cache_slot_view, decode_step, forward,
+                          init_cache, init_params, logits_from_hidden,
+                          prefill)
+
+__all__ = [
+    "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "HybridConfig",
+    "FrontendConfig", "param_count", "Transformer", "init_params", "forward",
+    "prefill", "decode_step", "init_cache", "cache_slot_view",
+    "logits_from_hidden",
+]

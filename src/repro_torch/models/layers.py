@@ -1,0 +1,174 @@
+"""Shared neural building blocks of the dense decoders.
+
+The port of ``repro/models/layers.py``: plain functions on tensors that
+keep the reference's casts operation for operation (so bfloat16 rounds
+where the reference rounds), and the ``nn.Module``s that hold their
+parameters. Weights keep the reference's layouts — a dense layer's ``w``
+is ``(d_in, d_out)`` and computes ``x @ w`` — so the reference's parameters
+carry across unchanged (:func:`repro_torch.interop.model_params_from_reference`).
+
+Initialisation is seeded: every module draws from an explicit
+``torch.Generator`` on the device it is built on. Its numbers differ from
+``jax.random``'s; tests that compare the two packages carry the
+reference's parameters across instead.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _normal(shape, scale: float, *, generator: torch.Generator,
+            dtype: torch.dtype, device) -> nn.Parameter:
+    w = torch.empty(shape, dtype=dtype, device=device)
+    w.normal_(generator=generator)
+    return nn.Parameter(w.mul_(scale))
+
+
+# -- dense -------------------------------------------------------------------
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+class Dense(nn.Module):
+    """``x @ w (+ b)``; ``w`` is ``(d_in, d_out)``, drawn from N(0, 1/d_in)."""
+
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
+                 generator: torch.Generator, dtype: torch.dtype, device,
+                 scale: Optional[float] = None):
+        super().__init__()
+        scale = float(scale) if scale is not None else float(d_in) ** -0.5
+        self.w = _normal((d_in, d_out), scale, generator=generator,
+                         dtype=dtype, device=device)
+        self.b = (nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device))
+                  if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.w, self.b)
+
+
+# -- norms -------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """Gemma-style RMSNorm, ``x / rms(x) * (1 + scale)``: the statistic in
+    float32, the rescale in ``x``'s dtype."""
+    var = x.float().square().mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps).to(x.dtype)
+    return y * (1.0 + scale).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+class Norm(nn.Module):
+    """RMSNorm (``scale`` starts at 0, applied as ``1 + scale``) or
+    LayerNorm (``scale`` 1, ``bias`` 0), by ``kind``."""
+
+    def __init__(self, kind: str, d: int, *, dtype: torch.dtype, device):
+        super().__init__()
+        if kind not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"unknown norm kind {kind!r}")
+        self.kind = kind
+        if kind == "rmsnorm":
+            self.scale = nn.Parameter(torch.zeros(d, dtype=dtype,
+                                                  device=device))
+        else:
+            self.scale = nn.Parameter(torch.ones(d, dtype=dtype,
+                                                 device=device))
+            self.bias = nn.Parameter(torch.zeros(d, dtype=dtype,
+                                                 device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "rmsnorm":
+            return rmsnorm(x, self.scale)
+        return layernorm(x, self.scale, self.bias)
+
+
+# -- RoPE --------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """Rotate pairs ``(x[..., ::2], x[..., 1::2])`` in float32 and cast
+    back. x: ``(..., seq, heads, hd)``, positions: ``(..., seq)``."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)             # (hd/2,)
+    angles = positions[..., None].float() * freqs             # (..., s, hd/2)
+    cos = torch.cos(angles)[..., None, :]                     # (..., s, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    r1 = x1 * cos - x2 * sin
+    r2 = x1 * sin + x2 * cos
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# -- gated MLPs ---------------------------------------------------------------
+def mlp(x: torch.Tensor, kind: str, up: Dense, down: Dense,
+        gate: Optional[Dense] = None) -> torch.Tensor:
+    """SwiGLU, GeGLU (tanh GELU) or plain tanh-GELU feed-forward."""
+    if kind == "swiglu":
+        h = F.silu(gate(x)) * up(x)
+    elif kind == "geglu":
+        h = F.gelu(gate(x), approximate="tanh") * up(x)
+    elif kind == "gelu":
+        h = F.gelu(up(x), approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp kind {kind!r}")
+    return down(h)
+
+
+class MLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, kind: str, *,
+                 generator: torch.Generator, dtype: torch.dtype, device):
+        super().__init__()
+        self.kind = kind
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.gate = (Dense(d_model, d_ff, **kw)
+                     if kind in ("swiglu", "geglu") else None)
+        self.up = Dense(d_model, d_ff, **kw)
+        self.down = Dense(d_ff, d_model, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp(x, self.kind, self.up, self.down, self.gate)
+
+
+# -- embeddings ---------------------------------------------------------------
+def embed(table: torch.Tensor, tokens: torch.Tensor, *,
+          scale_by_dim: bool = False) -> torch.Tensor:
+    h = table[tokens]
+    if scale_by_dim:  # gemma multiplies embeddings by sqrt(d_model)
+        h = h * torch.sqrt(torch.tensor(h.shape[-1], dtype=h.dtype,
+                                        device=h.device))
+    return h
+
+
+def unembed(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    return h @ table.T
+
+
+class Embedding(nn.Module):
+    """Token table ``(vocab, d_model)`` drawn from N(0, 0.02²)."""
+
+    def __init__(self, vocab: int, d_model: int, *,
+                 generator: torch.Generator, dtype: torch.dtype, device):
+        super().__init__()
+        self.table = _normal((vocab, d_model), 0.02, generator=generator,
+                             dtype=dtype, device=device)

@@ -6,23 +6,30 @@ has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-They hold the fused-tick and RLS kernels against their plain versions,
-and the fused engine and a short Demeter sweep on the card against the
-same runs on the CPU. ``chip_smoke.py`` does the same at the main path's
-full size.
+They hold the fused-tick, RLS and decode-attention kernels against their
+plain versions, and the fused engine, a short Demeter sweep and a small
+serving run on the card against the same runs on the CPU.
+``chip_smoke.py`` does the same at the main paths' full size.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import smoke_config
 from repro_torch.core import EngineConfig
 from repro_torch.core.demeter import DemeterHyperParams
 from repro_torch.dsp import (FailuresAt, PeriodicFailures, ScenarioSpec,
                              SweepEngine, make_trace)
+from repro_torch.kernels import decode_attention as attn_mod
 from repro_torch.kernels import fused_tick as kmod
 from repro_torch.kernels import ops
 from repro_torch.kernels import rls_update as rls_mod
-from repro_torch.kernels.ref import fused_tick_ref, rls_rank1_update_ref
+from repro_torch.kernels.ref import (decode_attention_ref, fused_tick_ref,
+                                     rls_rank1_update_ref)
+from repro_torch.models import init_params
+from repro_torch.serving import Request, ServingEngine
 
 LAM, THRESH, DT = 0.995, 3.0, 5.0
 
@@ -162,3 +169,99 @@ def test_demeter_sweep_on_card_matches_cpu(cuda):
     for a, b in zip(card.scenarios, cpu.scenarios):
         assert a.allclose(b, rtol=1e-9), a.name
 
+
+
+def _attention_operands(B, S, Hkv, G, D, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, shape), dtype=dtype,
+                               device=device)
+               for shape in ((B, 1, Hkv * G, D), (B, S, Hkv, D),
+                             (B, S, Hkv, D)))
+    lengths = rng.integers(1, S + 1, B)
+    lengths[:3] = [0, 1, S][:B]
+    return q, k, v, torch.as_tensor(lengths, dtype=torch.int32,
+                                    device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,Hkv,G,D", [(16, 4096, 4, 7, 128),
+                                         (3, 37, 2, 1, 64),
+                                         (5, 300, 1, 4, 256),
+                                         (4, 129, 3, 16, 128),
+                                         (2, 1000, 8, 2, 64)])
+def test_decode_attention_kernel_matches_plain_version(cuda, B, S, Hkv, G,
+                                                       D, dtype, tol):
+    """Ragged lengths with 0, 1 and S_max; any S_max; groups 1 to 16. The
+    plain version rounds the softmax weights to bf16 before the weighted
+    sum and the kernel does not, hence the bf16 bar."""
+    q, k, v, lengths = _attention_operands(B, S, Hkv, G, D, dtype, cuda)
+    before = attn_mod.decode_attention.launches
+    got = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert attn_mod.decode_attention.launches == before + 1
+    want = decode_attention_ref(q, k, v, lengths)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, err
+    assert not got[0].any()                     # length 0 gives zeros
+    scalar = ops.decode_attention(q, k, v, 5)
+    torch.testing.assert_close(scalar.float(),
+                               decode_attention_ref(q, k, v, 5).float(),
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_rejects_bad_operands(cuda):
+    q, k, v, lengths = _attention_operands(4, 64, 2, 4, 128, torch.float32,
+                                           cuda)
+    with pytest.raises(TypeError, match="like q"):
+        attn_mod.decode_attention(q, k.bfloat16(), v, lengths)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        attn_mod.decode_attention(q.half(), k.half(), v.half(), lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn_mod.decode_attention(q, k.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), v, lengths)
+    with pytest.raises(ValueError, match="head dims"):
+        attn_mod.decode_attention(q[..., :96].contiguous(),
+                                  k[..., :96].contiguous(),
+                                  v[..., :96].contiguous(), lengths)
+    with pytest.raises(ValueError, match="groups of 1 to 16"):
+        wide = torch.zeros(4, 1, 34, 128, device=cuda)
+        attn_mod.decode_attention(wide, k, v, lengths)
+    with pytest.raises(ValueError, match="do not group"):
+        attn_mod.decode_attention(q[:, :, :7].contiguous(), k, v, lengths)
+    with pytest.raises(ValueError, match="CUDA device"):
+        attn_mod.decode_attention(q, k.cpu(), v, lengths)
+    with pytest.raises(ValueError, match="lengths"):
+        attn_mod.decode_attention(q, k, v, lengths[:3])
+
+
+@pytest.mark.cuda
+def test_serving_on_card_matches_cpu(cuda):
+    """A narrow qwen2-shaped decoder (G = 7, D = 64, float32) serves the
+    same ragged requests on the card, through the kernel, and on the CPU,
+    through its plain version: equal tokens, one launch per layer and
+    decode step."""
+    cfg = smoke_config("qwen2_7b").scaled(n_heads=7, n_kv_heads=1,
+                                          head_dim=64)
+    cpu_model = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    outputs = {}
+    for dev, model in (("cuda", copy.deepcopy(cpu_model)), ("cpu",
+                                                            cpu_model)):
+        eng = ServingEngine(cfg, model, n_slots=3, max_len=96, device=dev)
+        rng = np.random.default_rng(0)
+        for i, n in enumerate((8, 12, 16, 9, 11)):
+            eng.submit(Request(f"r{i}", rng.integers(0, cfg.vocab_size, n),
+                               max_tokens=6, arrival_s=0.0))
+        before = attn_mod.decode_attention.launches
+        while eng.queue or eng.cache_mgr.active():
+            eng.admit()
+            eng.step()
+        launches = attn_mod.decode_attention.launches - before
+        assert launches == (eng.metrics.decode_steps * cfg.n_layers
+                            if dev == "cuda" else 0)
+        assert eng.metrics.completed == 5
+        outputs[dev] = [eng.requests[f"r{i}"].output for i in range(5)]
+    assert outputs["cuda"] == outputs["cpu"]

@@ -6,13 +6,15 @@
   result, also from a directory holding nothing else of the repo;
 * the port keeps registries of its own: the reference's registries gain
   no entries from it;
-* every entry point that places tensors defaults to the card and raises
-  without one, instead of running on the CPU unasked.
+* every entry point that places tensors (the sweep stack's and the
+  serving stack's) defaults to the card and raises without one, instead of
+  running on the CPU unasked.
 """
 import re
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -31,7 +33,11 @@ def _env():
 
 @pytest.mark.parametrize("module", ["repro_torch", "repro_torch.dsp",
                                     "repro_torch.core",
-                                    "repro_torch.interop"])
+                                    "repro_torch.interop",
+                                    "repro_torch.models",
+                                    "repro_torch.configs",
+                                    "repro_torch.serving",
+                                    "repro_torch.launch.serve"])
 def test_port_imports_neither_jax_nor_reference(module):
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
@@ -103,8 +109,21 @@ def _builders():
         def allocated_cost(self, c):
             return 1.0
 
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import run_engine
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine, calibrate
+    cfg = smoke_config("qwen2_7b")
+    serve_args = types.SimpleNamespace(requests=1, rate=10.0, prompt_len=4,
+                                       max_tokens=2, slots=1)
+
     executor_args = (ClusterModel(), [JobConfig()] * 2, [0, 1])
     return {
+        "ServingEngine": lambda: ServingEngine(
+            cfg, init_params(cfg, device="cpu"), n_slots=1, max_len=8),
+        "init_params": lambda: init_params(cfg),
+        "calibrate": lambda: calibrate(cfg),
+        "launch.serve.run_engine": lambda: run_engine(cfg, serve_args),
         "FusedSweepExecutor": lambda: FusedSweepExecutor(
             *executor_args, dt=5.0, n_steps=4),
         "BatchedSweepExecutor": lambda: BatchedSweepExecutor(
@@ -120,7 +139,9 @@ def _builders():
 
 @pytest.mark.parametrize("entry", sorted(
     ["FusedSweepExecutor", "BatchedSweepExecutor", "ForecastBank",
-     "GPBank.fit", "batched_posterior", "ModelBank", "DemeterController"]))
+     "GPBank.fit", "batched_posterior", "ModelBank", "DemeterController",
+     "ServingEngine", "init_params", "calibrate",
+     "launch.serve.run_engine"]))
 def test_entry_points_default_to_the_card(entry):
     import torch
     if torch.cuda.is_available():
