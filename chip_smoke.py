@@ -9,7 +9,11 @@ Phases, each of which exits non-zero on failure:
    one ``nvcc`` per source, all started together;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the shapes both main paths give it and larger ones, with CUDA-event
-   times: ``fused_tick`` (K2) and ``rls_update`` (K1, float64 and float32);
+   times: ``fused_tick`` (K2), ``rls_update`` (K1, float64 and float32),
+   ``decode_attention`` (K3) and ``ssd_scan`` (K5: the mamba2 and zamba2
+   prefill shapes in bf16 and float32, the reference tests' shapes in
+   float32, and strong decay, within 5e-5 in float32 and 2e-2 in bf16 of
+   its plain version, atol and rtol);
 4. baseline path: ``SweepEngine``/``run_sweep`` over a baseline-controller
    grid (traces ysb and tsw x static/reactive/ds2 x seeds 0-47 = 288
    scenarios, the paper's 18 h at dt = 5 s, a failure every 45 minutes) on
@@ -42,13 +46,26 @@ Phases, each of which exits non-zero on failure:
    logit gap is below the logits' measured difference;
 10. autoscaled serving: ``run_autoscaled`` calibrates a full-width qwen2-7b
     replica on the card and lets the Demeter controller (on the card) run
-    a simulated fleet for 3600 s.
+    a simulated fleet for 3600 s;
+11. the SSM serving main path: mamba2-1.3b at full width in bfloat16 (all
+    48 layers), phase 8's engine and traffic (32 requests, 64 new tokens);
+    every request completes, every logit is finite, the second wave of
+    prefills reuses slots, and K5 launches once per layer and prefill
+    (48 x 32 = 1 536);
+12. mamba2, card against CPU: 2 layers at full width, float32, TF32 off,
+    4 requests of 300-700 prompt tokens (across the SSD chunk), judged as
+    phase 9;
+13. zamba2-2.7b at full width in bfloat16 (54 layers, the shared block's
+    KV cache for 16 x 4096 positions), 16 requests of 256-2048 prompt
+    tokens, 32 new tokens; K5 launches 54 x 16 = 864 times;
+14. zamba2, card against CPU: one super-layer (6 layers), float32, 2
+    requests, judged as phase 9.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
 ``kernels`` line reports each kernel's launches on its own main path (K1
-and K2 on the Demeter path, K3 on the serving path) beside its times at
-that path's shapes.
+and K2 on the Demeter path, K3 on the qwen2-7b serving path, K5 on the
+mamba2-1.3b one) beside its times at that path's shapes.
 
     python3 chip_smoke.py                     # from the root of a checkout
 """
@@ -71,6 +88,8 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 FP32_OPS_PER_S = 67e12
+#: H100 SXM data sheet: dense TF32 tensor-core rate, the SSD scan's peak
+TF32_OPS_PER_S = 494.7e12
 
 #: Row counts the fused-tick check uses; 288 is the baseline path's width,
 #: and the Demeter main path's own row count is added.
@@ -105,11 +124,31 @@ SWEEP_ARRAYS = ("rates", "latencies", "usage_cpu", "usage_mem_mb", "workers",
 SERVE_ARCH = "qwen2_7b"
 SERVE_SLOTS, SERVE_MAX_LEN = 16, 4096
 SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW_TOKENS = 32, (256, 2048), 64
+#: The state-space serving paths: mamba2-1.3b (48 mamba2 layers, 64 heads
+#: of 64, state 128) with the qwen2-7b path's traffic, and zamba2-2.7b (54
+#: mamba2 layers of 80 heads, state 64, and a shared attention block every
+#: 6) with half of it; both at full width in bfloat16, 16 slots of 4096.
+SSM_ARCH, HYBRID_ARCH = "mamba2_1p3b", "zamba2_2p7b"
+SSM_REQUESTS, SSM_NEW_TOKENS = SERVE_REQUESTS, SERVE_NEW_TOKENS
+HYBRID_REQUESTS, HYBRID_NEW_TOKENS = 16, 32
+#: card against CPU: (arch, layers, requests, prompt lengths, new tokens);
+#: prompts of 300-700 tokens cross the SSD chunk of 256 on the card
+CARD_VS_CPU = {SERVE_ARCH: (2, 4, (16, 32), 8),
+               SSM_ARCH: (2, 4, (300, 700), 8),
+               HYBRID_ARCH: (6, 2, (300, 700), 8)}
 #: K3's checks: the serving shapes in both dtypes, then a sweep over groups
 #: and head dims; bars against the plain version (which rounds the softmax
 #: weights to bf16 before the weighted sum, where the kernel keeps float32)
 ATTN_BARS = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_SWEEP_GROUPS, ATTN_SWEEP_DIMS = (1, 4, 7), (64, 128, 256)
+#: K5's bars against its plain version (atol and rtol): the reference's
+#: own in float32, and in bf16 the output's rounding to bf16
+SSD_BARS = {"float32": 5e-5, "bfloat16": 2e-2}
+#: the reference tests' shapes (tests/test_kernels.py::TestSSDScan: B, S,
+#: H, P, G, N, chunk), a ragged chunk of 20 and the smoke configs' 16
+SSD_TEST_SHAPES = ((2, 512, 4, 64, 1, 128, 128), (1, 256, 8, 64, 2, 128, 256),
+                   (2, 256, 4, 64, 4, 128, 128), (1, 100, 3, 32, 1, 32, 20),
+                   (2, 64, 4, 16, 1, 16, 16))
 
 
 def fail(msg: str) -> NoReturn:
@@ -328,6 +367,77 @@ def check_decode_attention(B: int, S: int, Hkv: int, G: int, D: int, dtype,
                 "dispatch_ms": host_ms(call),
                 "plain_dispatch_ms": host_ms(plain),
                 **bound(n_bytes, n_ops, FP32_OPS_PER_S)})
+    return out
+
+
+def ssd_operands(B: int, S: int, H: int, P: int, G: int, N: int, dtype, *,
+                 a_log_max: float, dt_max: float, seed: int = 0):
+    """Random SSD-scan operands on the card: x, b, c normal in ``dtype``,
+    dt uniform in [0.001, dt_max] and a_log in [0, a_log_max] (float32)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt, device="cuda")
+    return (t(rng.normal(size=(B, S, H, P))),
+            t(rng.uniform(0.001, dt_max, (B, S, H)), torch.float32),
+            t(rng.uniform(0.0, a_log_max, H), torch.float32),
+            t(rng.normal(size=(B, S, G, N))), t(rng.normal(size=(B, S, G, N))))
+
+
+def check_ssd_scan(B: int, S: int, H: int, P: int, G: int, N: int,
+                   chunk: int, dtype, *, a_log_max: float = 1.5,
+                   dt_max: float = 0.1, timed: bool = False) -> dict:
+    """The CUDA SSD scan against its plain version: ``y`` and the final
+    state within ``SSD_BARS`` (atol and rtol) of the plain version's and
+    finite (``bar_share_*``: the largest share of the bar an element
+    uses); with ``timed`` also its device and dispatch times, the plain
+    version's and the bound (FLOPs over the dense TF32 rate or bytes over
+    HBM, the larger). No single PyTorch call computes the scan, so there is
+    no library time."""
+    import torch
+    from repro_torch.kernels import ssd_scan as kmod
+    from repro_torch.kernels.ref import ssd_scan_ref
+    ops = ssd_operands(B, S, H, P, G, N, dtype, a_log_max=a_log_max,
+                       dt_max=dt_max)
+    got = kmod.ssd_scan(*ops, chunk=chunk)
+    torch.cuda.synchronize()
+    want = ssd_scan_ref(*ops, chunk)
+    name = str(dtype).split(".")[-1]
+    label = (f"ssd_scan B={B} S={S} H={H} P={P} G={G} N={N} Q={chunk} "
+             f"{name} a_log<={a_log_max:.3f} dt<={dt_max}")
+    tol = SSD_BARS[name]
+    out = {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N, "chunk": chunk,
+           "dtype": name, "a_log_max": a_log_max, "dt_max": dt_max}
+    for key, g, w in (("y", got[0], want[0]), ("state", got[1], want[1])):
+        g, w = g.float(), w.float()
+        if not bool(g.isfinite().all()):
+            fail(f"{label}: the kernel's {key} is not finite")
+        err = (g - w).abs()
+        out[f"max_abs_err_{key}"] = float(err.max())
+        # the largest share of the bar tol + tol|plain| any element uses
+        out[f"bar_share_{key}"] = share = float(
+            (err / (tol * (1.0 + w.abs()))).max())
+        if not share <= 1.0:
+            fail(f"{label}: {key} differs from the plain version by "
+                 f"{float(err.max())} (bar {tol} + {tol}|plain|)")
+    out["max_abs_err"] = max(out["max_abs_err_y"], out["max_abs_err_state"])
+    call = lambda: kmod.ssd_scan(*ops, chunk=chunk)  # noqa: E731
+    out["ms"] = device_ms(call, n=20, warmup=3)
+    if not timed:
+        return out
+    item = ops[0].element_size()
+    q = chunk
+    n_ops = B * (S // q) * (G * 2 * q * q * N
+                            + H * (2 * q * q * P + 4 * q * P * N))
+    n_bytes = (2 * B * S * H * P * item + 2 * B * S * G * N * item
+               + B * S * H * 4 + H * 4 + B * H * P * N * 4)
+    plain = lambda: ssd_scan_ref(*ops, chunk)  # noqa: E731
+    out.update({"flops": n_ops, "bytes": n_bytes,
+                "plain_ms": device_ms(plain, n=10, warmup=2),
+                "library_ms": None, "dispatch_ms": host_ms(call, n=20),
+                **bound(n_bytes, n_ops, TF32_OPS_PER_S)})
     return out
 
 
@@ -844,16 +954,32 @@ def decode_profile(eng, prompts, warmup: int = 3, steps: int = 5) -> dict:
                 for e in top}}
 
 
-def serving_main_path(device: str = "cuda") -> dict:
-    """Phase 8: qwen2-7b at full width on ``device``; returns K3's launches
-    and the path's numbers."""
+def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """Each kernel's launches on a serving run: K3 once per layer and decode
+    step of a dense model; K5 once per mamba layer and prefill of more than
+    one token (the ssm and hybrid families); the hybrid's shared block uses
+    the plain attention, as the reference's does."""
+    if cfg.family == "dense":
+        return {"decode_attention": decode_steps * cfg.n_layers,
+                "ssd_scan": 0}
+    return {"decode_attention": 0, "ssd_scan": prefills * cfg.n_layers}
+
+
+def serving_main_path(device: str = "cuda", arch: str = SERVE_ARCH,
+                      n_requests: int = SERVE_REQUESTS,
+                      new_tokens: int = SERVE_NEW_TOKENS) -> dict:
+    """A serving path at full width on ``device`` (phase 8: qwen2-7b;
+    phases 11 and 13: mamba2-1.3b and zamba2-2.7b): ``n_requests`` prompts
+    of 256-2048 tokens through 16 slots, so a second wave reuses slots;
+    returns the kernels' launches and the path's numbers."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import ssd_scan as k5
     from repro_torch.models import init_params, logits_from_hidden
     from repro_torch.serving import ServingEngine
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0, device=device)
     on_card = device == "cuda"
@@ -864,23 +990,37 @@ def serving_main_path(device: str = "cuda") -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     eng = ServingEngine(cfg, model, n_slots=SERVE_SLOTS,
                         max_len=SERVE_MAX_LEN, device=device)
+    cache_gb = sum(v.numel() * v.element_size() for k, v in eng.cache.items()
+                   if k != "index") / 1e9
     rng = np.random.default_rng(0)
-    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
-                        SERVE_REQUESTS)
+    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, n_requests)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    slots = []                  # the slot of every prefill, in order
+    admit = eng._prefill_into_slot
+    eng._prefill_into_slot = lambda slot, req: (slots.append(slot),
+                                                admit(slot, req))
     timers = LayerTimers()
     timers.wrap(eng, "_prefill_into_slot", "prefill")
     timers.wrap(eng, "step", "decode step")
     k3.decode_attention.launches = 0
+    k5.ssd_scan.launches = 0
     try:
-        wall, _ = serve(eng, prompts, SERVE_NEW_TOKENS)
+        wall, _ = serve(eng, prompts, new_tokens)
     finally:
         timers.restore()
-    launches = k3.decode_attention.launches
+        del eng._prefill_into_slot
+    launches = {"decode_attention": k3.decode_attention.launches,
+                "ssd_scan": k5.ssd_scan.launches}
     steps = eng.metrics.decode_steps
-    if on_card and (launches != steps * cfg.n_layers or launches == 0):
-        fail(f"decode_attention launched {launches} times for {steps} decode "
-             f"steps x {cfg.n_layers} layers")
+    reused = len(slots) - len(set(slots))
+    want = expected_launches(cfg, len(slots), steps)
+    if on_card and launches != want:
+        fail(f"{arch}: kernel launches {launches}, expected {want} "
+             f"({len(slots)} prefills, {steps} decode steps, "
+             f"{cfg.n_layers} layers)")
+    if reused < n_requests - SERVE_SLOTS:
+        fail(f"{arch}: {reused} prefills went into a reused slot, expected "
+             f"{n_requests - SERVE_SLOTS}")
     # the LM head alone at the decode batch, on the device, and a profile
     # of full-batch decode steps
     h = torch.randn(SERVE_SLOTS, 1, cfg.d_model, device=device,
@@ -888,20 +1028,21 @@ def serving_main_path(device: str = "cuda") -> dict:
     lm_head_ms = (device_ms(lambda: logits_from_hidden(model, h))
                   if on_card else None)
     profile = decode_profile(eng, prompts[:SERVE_SLOTS]) if on_card else None
-    out = {"arch": SERVE_ARCH, "params": n_params, "init_s": init_s,
-           "requests": SERVE_REQUESTS, "prompt_tokens": int(lens.sum()),
-           "new_tokens": SERVE_REQUESTS * SERVE_NEW_TOKENS, "wall_s": wall,
-           "decode_steps": steps,
+    out = {"arch": arch, "params": n_params, "init_s": init_s,
+           "cache_gb": cache_gb, "requests": n_requests,
+           "prompt_tokens": int(lens.sum()),
+           "new_tokens": n_requests * new_tokens, "wall_s": wall,
+           "decode_steps": steps, "reused_slot_prefills": reused,
            "mean_step_s": float(np.mean(np.fromiter(
                eng.metrics.step_times, float))),
            "p95_latency_s": eng.metrics.p95_latency(),
-           "tokens_per_s": SERVE_REQUESTS * SERVE_NEW_TOKENS / wall,
+           "tokens_per_s": n_requests * new_tokens / wall,
            "layer_wall_s": timers.wall, "layer_calls": timers.calls,
            "lm_head_ms": lm_head_ms, "decode_profile": profile,
            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                               if on_card else None),
-           "launches": {"decode_attention": launches}}
-    print("serving main path " + json.dumps(out), flush=True)
+           "launches": launches}
+    print(f"serving main path {arch} " + json.dumps(out), flush=True)
     return out
 
 
@@ -923,16 +1064,19 @@ def first_token_difference(a, b):
     return None, "", True
 
 
-def serving_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
-    """Phase 9: the same weights and requests on the card (K3) and on the
-    CPU (its plain version), float32 with TF32 off."""
+def serving_card_vs_cpu(devices=("cuda", "cpu"), arch: str = SERVE_ARCH
+                        ) -> dict:
+    """Phases 9, 12 and 14: the same weights and requests at full width but
+    few layers (``CARD_VS_CPU``) on the card (the kernels) and on the CPU
+    (their plain versions), float32 with TF32 off."""
     import copy
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serving import ServingEngine
-    cfg = get_config(SERVE_ARCH).scaled(n_layers=2)
+    layers, n_requests, prompt_lens, new_tokens = CARD_VS_CPU[arch]
+    cfg = get_config(arch).scaled(n_layers=layers)
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -943,35 +1087,39 @@ def serving_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
         models = [first, copy.deepcopy(first).to(devices[1])]
         rng = np.random.default_rng(1)
         prompts = [rng.integers(0, cfg.vocab_size, int(n))
-                   for n in rng.integers(16, 33, 4)]
+                   for n in rng.integers(prompt_lens[0], prompt_lens[1] + 1,
+                                         n_requests)]
+        max_len = 64 * -(-(prompt_lens[1] + new_tokens) // 64)
         runs = []
         for dev, model in zip(devices, models):
-            eng = ServingEngine(cfg, model, n_slots=4, max_len=64,
-                                device=dev)
-            wall, watch = serve(eng, prompts, 8, keep_logits=True)
+            eng = ServingEngine(cfg, model, n_slots=n_requests,
+                                max_len=max_len, device=dev)
+            wall, watch = serve(eng, prompts, new_tokens, keep_logits=True)
             runs.append((wall, watch.logits,
-                         [eng.requests[f"r{i}"].output for i in range(4)]))
+                         [eng.requests[f"r{i}"].output
+                          for i in range(n_requests)]))
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = tf32
     (card_wall, a, card_out), (cpu_wall, b, cpu_out) = runs
     if len(a) != len(b):
-        fail(f"serving card vs CPU: {len(a)} vs {len(b)} model calls")
+        fail(f"{arch} card vs CPU: {len(a)} vs {len(b)} model calls")
     call, where, explained = first_token_difference(a, b)
     # logits stay comparable up to the first differing pick
     calls = len(a) if call is None else call + 1
     rel = max(float((x - y).abs().max() / y.abs().max())
               for x, y in zip(a[:calls], b[:calls]))
     if card_out != cpu_out or call is not None:
-        print(f"serving card vs CPU: picks differ at {where}", flush=True)
+        print(f"{arch} card vs CPU: picks differ at {where}", flush=True)
         if not explained:
-            fail(f"serving card vs CPU: picks differ beyond rounding: "
+            fail(f"{arch} card vs CPU: picks differ beyond rounding: "
                  f"{where}")
-    out = {"layers": cfg.n_layers, "requests": len(prompts),
+    out = {"arch": arch, "layers": cfg.n_layers, "requests": len(prompts),
+           "prompt_tokens": [len(pr) for pr in prompts],
            "tokens_equal": card_out == cpu_out,
            "max_rel_logit_diff": rel, "calls_compared": calls,
            "wall_s": dict(zip(devices, (card_wall, cpu_wall)))}
-    print("serving card vs cpu " + json.dumps(out), flush=True)
+    print(f"serving card vs cpu {arch} " + json.dumps(out), flush=True)
     return out
 
 
@@ -1036,7 +1184,8 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = build.build_all(["fused_tick", "rls_update", "decode_attention"])
+    libs = build.build_all(["fused_tick", "rls_update", "decode_attention",
+                            "ssd_scan"])
     for lib_name in libs:
         build.load(lib_name)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
@@ -1081,6 +1230,27 @@ def main() -> int:
                 r = check_decode_attention(SERVE_SLOTS, SERVE_MAX_LEN, 4, G,
                                            D, dtype, timed=False)
                 print("kernel decode_attention " + json.dumps(r), flush=True)
+    # K5 at the serving paths' prefill shapes (mamba2-1.3b: H = 64, P = 64,
+    # N = 128; zamba2-2.7b: H = 80, N = 64; a 2048-token prompt, chunk
+    # 256), at the reference tests' shapes in float32, and under strong
+    # decay (A up to 16, dt up to 1)
+    ssd_rows = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        c = get_config(arch)
+        heads = c.ssm.expand * c.d_model // c.ssm.head_dim
+        for dtype in (torch.bfloat16, torch.float32):
+            r = check_ssd_scan(1, SERVE_PROMPTS[1], heads, c.ssm.head_dim,
+                               c.ssm.n_groups, c.ssm.d_state, c.ssm.chunk,
+                               dtype, a_log_max=math.log(16), timed=True)
+            ssd_rows[(arch, r["dtype"])] = r
+            print("kernel ssd_scan " + json.dumps(r), flush=True)
+    for shape in SSD_TEST_SHAPES:
+        r = check_ssd_scan(*shape, torch.float32)
+        print("kernel ssd_scan " + json.dumps(r), flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        r = check_ssd_scan(1, SERVE_PROMPTS[1], 64, 64, 1, 128, 256, dtype,
+                           a_log_max=math.log(16), dt_max=1.0)
+        print("kernel ssd_scan strong decay " + json.dumps(r), flush=True)
     print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the baseline path ------------------------------------------------
@@ -1120,13 +1290,43 @@ def main() -> int:
     autoscaled_serving()
     print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
-    # -- 11. summary lines: each kernel's launches on its main path and its
+    # -- 11. the SSM serving main path (mamba2-1.3b) ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_path = serving_main_path(arch=SSM_ARCH, n_requests=SSM_REQUESTS,
+                                 new_tokens=SSM_NEW_TOKENS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 12. mamba2, card against CPU ---------------------------------------
+    serving_card_vs_cpu(arch=SSM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 13. the hybrid serving path (zamba2-2.7b) --------------------------
+    hybrid_path = serving_main_path(arch=HYBRID_ARCH,
+                                    n_requests=HYBRID_REQUESTS,
+                                    new_tokens=HYBRID_NEW_TOKENS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 14. zamba2 (one super-layer), card against CPU ---------------------
+    serving_card_vs_cpu(arch=HYBRID_ARCH)
+    print(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 15. summary lines: each kernel's launches on its main path and its
     # times at that path's shapes
     tick = tick_rows[main_tick_rows]
     rls = rls_rows[(main_rls_rows, MAIN_K, "float64")]
     attn = attn_rows["bfloat16"]
+    ssd = ssd_rows[(SSM_ARCH, "bfloat16")]
     print(f"Demeter path launches {main_path['launches']}; serving path "
-          f"launches {serve_path['launches']}")
+          f"launches {serve_path['launches']}; {SSM_ARCH} launches "
+          f"{ssm_path['launches']}; {HYBRID_ARCH} launches "
+          f"{hybrid_path['launches']}")
     kernels = [{
         "name": "fused_tick", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_tick.cu",
@@ -1155,6 +1355,15 @@ def main() -> int:
         "ms": attn["ms"], "plain_ms": attn["plain_ms"],
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
         "library_ms": attn["library_ms"],
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:74",
+        "launches": ssm_path["launches"]["ssd_scan"],
+        "max_abs_err": ssd["max_abs_err"],
+        "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+        "library_ms": None,
     }]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err") + (

@@ -26,17 +26,26 @@ _ALIASES.update({"mamba2-1.3b": "mamba2_1p3b", "zamba2-2.7b": "zamba2_2p7b",
                  "deepseek-moe": "deepseek_moe_16b"})
 
 
-def get_config(arch: str) -> ModelConfig:
+def arch_id(arch: str) -> str:
+    """The registry id of ``arch``: an id, its dashed form or an alias
+    (``mamba2-1.3b``); raises ``ValueError`` for an unknown name."""
     key = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "p")
     if key not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+        raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return key
+
+
+def get_config(arch: str) -> ModelConfig:
+    try:
+        key = arch_id(arch)
+    except ValueError as e:
+        raise KeyError(str(e)) from None
     mod = importlib.import_module(f".{key}", __package__)
     return mod.CONFIG
 
 
 def smoke_config(arch: str) -> ModelConfig:
-    key = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "p")
-    mod = importlib.import_module(f".{key}", __package__)
+    mod = importlib.import_module(f".{arch_id(arch)}", __package__)
     return mod.smoke()
 
 

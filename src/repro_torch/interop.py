@@ -177,20 +177,26 @@ def model_params_from_reference(cfg: model_config.ModelConfig,
     """A port model of ``cfg`` on ``device`` holding the reference's
     parameters: ``params`` is the reference's parameter tree (nested dicts)
     with NumPy leaves, as ``repro.models.init_params`` builds it. The
-    layer stack's ``(L, ...)`` leaves are unstacked into the port's
-    per-layer modules; the model's dtype is the leaves'."""
+    layer stack's leaves are unstacked into the port's per-layer modules:
+    ``(L, ...)`` for the dense and ssm families, ``(groups, period, ...)``
+    for the hybrid, whose ``shared.*`` leaves go to the shared block. The
+    model's dtype is the leaves' (``final_norm.scale``'s); float32 leaves
+    of a bfloat16 model (mamba2's ``a_log``, ``dt_bias``, ``d_skip``) stay
+    float32."""
     flat = dict(_flatten(params))
     model = init_params(cfg, device=device,
                         dtype=_to_torch(flat["final_norm.scale"]).dtype)
+    lead = ((cfg.n_layers // cfg.hybrid.period, cfg.hybrid.period)
+            if cfg.family == "hybrid" else (cfg.n_layers,))
     src = {}
     for name, a in flat.items():
-        if name.startswith("stack."):
-            if a.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: {a.shape[0]} layers stacked, the "
-                                 f"config has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                src[f"blocks.{i}.{name[len('stack.'):]}"] = a[i]
-        else:
+        if not name.startswith("stack."):
             src[name] = a
+            continue
+        if tuple(a.shape[:len(lead)]) != lead:
+            raise ValueError(f"{name}: layers stacked as "
+                             f"{a.shape[:len(lead)]}, the config has {lead}")
+        for i, idx in enumerate(np.ndindex(*lead)):
+            src[f"blocks.{i}.{name[len('stack.'):]}"] = a[idx]
     load_reference_params(model, src)
     return model

@@ -12,7 +12,9 @@ import torch
 from . import decode_attention as _decode_attention
 from . import fused_tick as _fused_tick
 from . import rls_update as _rls_update
-from .ref import decode_attention_ref, fused_tick_ref, rls_rank1_update_ref
+from . import ssd_scan as _ssd_scan
+from .ref import (decode_attention_ref, fused_tick_ref, rls_rank1_update_ref,
+                  ssd_scan_ref)
 
 
 def rls_rank1_update(P: torch.Tensor, phi: torch.Tensor, lam: torch.Tensor):
@@ -54,3 +56,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _decode_attention.decode_attention(q, k, v, lengths)
     raise ValueError(f"decode_attention takes CPU or CUDA tensors, got a "
                      f"tensor on {q.device}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int):
+    """Mamba2's chunked SSD scan from a zero state; see
+    :func:`repro_torch.kernels.ref.ssd_scan_ref` for the function and the
+    shapes."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, a_log, b, c, chunk)
+    if x.device.type == "cuda":
+        return _ssd_scan.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
+    raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got a tensor on "
+                     f"{x.device}")

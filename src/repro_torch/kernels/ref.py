@@ -81,3 +81,68 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = sdpa_reference(q, k, v, causal=False, kv_valid_len=lengths)
     empty = (lengths <= 0).reshape(-1, 1, 1, 1)
     return out.masked_fill(empty, 0.0)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's chunked SSD scan (state-space duality) from a zero state:
+    ``repro/models/mamba2.py::ssd_chunked_reference`` operation for
+    operation, in float32.
+
+    x: ``(B, S, H, P)``; dt: ``(B, S, H)``; a_log: ``(H,)``; b, c:
+    ``(B, S, G, N)`` with the H heads split evenly over G groups (head h
+    reads group ``h // (H / G)``); ``S % chunk == 0``. Returns ``(y (B, S,
+    H, P) in x's dtype, final_state (B, H, P, N) float32)``.
+
+    Per chunk of Q positions: the intra-chunk dual (attention-like) form,
+    the readout of the state carried in from earlier chunks, and the state
+    update. The decay between positions is ``exp(cum_i - cum_j)`` over the
+    chunk's cumulative log-decay; above the diagonal it is dropped by the
+    ``where`` (there it may overflow to inf, and the ``where`` keeps the
+    inf out of the sum).
+    """
+    bsz, seq, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if seq % chunk:
+        raise ValueError(f"sequence length {seq} is not a multiple of the "
+                         f"SSD chunk {chunk}")
+    nc, q = seq // chunk, chunk
+    rep = h // g
+
+    a = -torch.exp(a_log.float())                            # (H,) negative
+    dtf = dt.float()
+    da = (dtf * a).reshape(bsz, nc, q, h)                    # log-decay/step
+    cum = torch.cumsum(da, dim=2)                            # (B,NC,Q,H)
+
+    xdt = (x.float() * dtf[..., None]).reshape(bsz, nc, q, h, p)
+    bg = b.float().reshape(bsz, nc, q, g, n)
+    cg = c.float().reshape(bsz, nc, q, g, n)
+
+    # Intra-chunk dual form: scores shared per group, decay per head.
+    cb = torch.einsum("bcqgn,bckgn->bcgqk", cg, bg)          # (B,NC,G,Q,Q)
+    cb = cb.repeat_interleave(rep, dim=2)                    # (B,NC,H,Q,Q)
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # q - k
+    l = torch.exp(li.permute(0, 1, 4, 2, 3))                 # (B,NC,H,Q,Q)
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    m = torch.where(mask, cb * l, 0.0)
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", m, xdt)
+
+    # Chunk-final states + inter-chunk linear recurrence.
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)        # (B,NC,Q,H)
+    bh = bg.repeat_interleave(rep, dim=3).reshape(bsz, nc, q, h, n)
+    states = torch.einsum("bckh,bckhp,bckhn->bchpn", decay_to_end, xdt, bh)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                # (B,NC,H)
+
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    h_prevs = []
+    for i in range(nc):
+        h_prevs.append(state)
+        state = chunk_decay[:, i, :, None, None] * state + states[:, i]
+    h_prevs = torch.stack(h_prevs, dim=1)                    # (B,NC,H,P,N)
+
+    ch = cg.repeat_interleave(rep, dim=3).reshape(bsz, nc, q, h, n)
+    y_inter = torch.einsum("bcqhn,bchpn->bcqhp", ch, h_prevs) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, seq, h, p)
+    return y.to(x.dtype), state

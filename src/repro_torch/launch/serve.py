@@ -15,7 +15,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..configs import ARCH_IDS, get_config, smoke_config
+from ..configs import arch_id, get_config, smoke_config
 from ..core.config_space import tpu_serving_space
 from ..core.demeter import DemeterController, DemeterHyperParams
 from ..core.executor import EngineConfig
@@ -109,7 +109,9 @@ def run_autoscaled(cfg, args, *, device="cuda",
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--arch", type=arch_id, required=True,
+                    help="an id of repro_torch.configs.ARCH_IDS or an alias "
+                         "(mamba2-1.3b, zamba2-2.7b)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--rate", type=float, default=8.0)

@@ -1,6 +1,6 @@
 """The model zoo's configuration schema for all 10 architectures, and the
-dense decoders built from it (the other families follow in a later
-slice)."""
+decoders built from it: the dense family, mamba2 (ssm) and zamba2 (hybrid)
+(the other families follow in a later slice)."""
 from .config import (FrontendConfig, HybridConfig, MLAConfig, ModelConfig,
                      MoEConfig, SSMConfig, param_count)
 from .transformer import (Transformer, cache_slot_view, decode_step, forward,

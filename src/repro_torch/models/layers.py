@@ -120,6 +120,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
+# -- activations ---------------------------------------------------------------
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each
+    operation rounding in x's dtype: the reference's ``jax.nn.silu`` as XLA
+    computes it. In bfloat16, ``F.silu`` (one rounding) differs from it by
+    an ulp in about a quarter of the values, which a mamba2 layer's chain
+    of bfloat16 operations carries to its output."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 # -- gated MLPs ---------------------------------------------------------------
 def mlp(x: torch.Tensor, kind: str, up: Dense, down: Dense,
         gate: Optional[Dense] = None) -> torch.Tensor:

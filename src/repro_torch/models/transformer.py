@@ -1,16 +1,24 @@
-"""Model assembly for the dense decoders: blocks, the layer loop and the
-serving entry points.
+"""Model assembly: blocks, the layer loops and the serving entry points.
 
-The port of ``repro/models/transformer.py`` for the dense family
-(deepseek-7b, mistral-nemo-12b, qwen2-7b, gemma-7b): ``[attn + MLP] x L``
-with pre-norm residuals. The reference scans stacked layer parameters with
-``lax.scan``; here the layers are an ``nn.ModuleList`` run by a Python loop.
-The KV cache keeps the reference's stacked layout, ``(L, B, S_max, Hkv,
-hd)``, and every write lands in place: a slot's prefill writes through a
-view of the arena (:func:`cache_slot_view`), never through a copy.
+The port of ``repro/models/transformer.py`` for three families:
 
-The other families (moe, mla, ssm, hybrid, encoder, vlm) are ported in a
-later slice (ROADMAP.md, slice 11): :func:`init_params` refuses them.
+* dense decoders (deepseek-7b, mistral-nemo-12b, qwen2-7b, gemma-7b):
+  ``[attn + MLP] x L`` with pre-norm residuals;
+* SSM (mamba2-1.3b): ``[norm + mamba2] x L``, attention-free;
+* hybrid (zamba2-2.7b): ``L / period`` super-layers, each the one shared
+  attention block (on ``concat(hidden, embedding)``, width 2d, projected
+  back to d) then ``period`` mamba2 blocks.
+
+The reference scans stacked layer parameters with ``lax.scan``; here the
+layers are an ``nn.ModuleList`` run by a Python loop. The caches keep the
+reference's stacked layouts (the KV cache ``(L, B, S_max, Hkv, hd)``, the
+mamba state ``(L, B, ...)``, the hybrid's ``(groups, ...)`` KV and
+``(groups, period, B, ...)`` mamba leaves), and every write lands in place:
+a slot's prefill writes through a view of the arena
+(:func:`cache_slot_view`), never through a copy.
+
+The other families (moe, mla, encoder, vlm) are ported in a later slice
+(ROADMAP.md, slice 11): :func:`init_params` refuses them.
 """
 from __future__ import annotations
 
@@ -20,15 +28,23 @@ import torch
 from torch import nn
 
 from ..core.executor import resolve_device
-from .attention import Attention, Index, attention_apply, init_kv_cache
+from .attention import (Attention, Index, attention_apply, cache_update,
+                        init_kv_cache, sdpa_reference)
 from .config import ModelConfig
-from .layers import (Dense, Embedding, MLP, Norm, dense, embed, unembed)
+from .layers import (Dense, Embedding, MLP, Norm, apply_rope, dense, embed,
+                     unembed)
+from .mamba2 import Mamba2, MambaCache, init_mamba_cache, mamba2_apply
 
-#: a decode cache: {"index": int, "k": (L, B, S, Hkv, hd), "v": ...}
+#: a decode cache: {"index": int} and the family's stacked leaves ("k",
+#: "v" for attention; "conv_x", "conv_bc", "ssd" for mamba layers)
 Cache = Dict[str, Any]
 
-#: the families this slice builds
-PORTED_FAMILIES = ("dense",)
+#: the families this port builds
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+#: trailing dims after the batch axis of each cache leaf (the leading
+#: dims are layers, or groups and period)
+_CACHE_TRAILING = {"k": 3, "v": 3, "conv_x": 2, "conv_bc": 2, "ssd": 3}
 
 
 class Block(nn.Module):
@@ -46,19 +62,94 @@ class Block(nn.Module):
                        generator=generator, **kw)
 
 
-def block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor,
+class MambaBlock(nn.Module):
+    """Pre-norm residual mamba2 block, no FFN (the reference's
+    ``block_init`` for the ``mamba`` kind)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.norm1 = Norm(cfg.norm_kind, cfg.d_model, dtype=dtype,
+                          device=device)
+        self.mixer = Mamba2(cfg, generator=generator, dtype=dtype,
+                            device=device)
+
+
+def block_apply(p: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
                 cache_index: Optional[Index] = None) -> torch.Tensor:
-    """One block; ``cache`` is the layer's (k, v) views, written in place."""
+    """One block; ``cache`` is the layer's views (the (k, v) pair of an
+    attention block, a :class:`MambaCache` of a mamba block), written in
+    place."""
     h = p.norm1(x)
+    if isinstance(p, MambaBlock):
+        return x + mamba2_apply(p.mixer, cfg, h, cache=cache,
+                                cache_index=cache_index)
     x = x + attention_apply(p.mixer, cfg, h, positions, cache=cache,
                             cache_index=cache_index)
     return x + p.ffn(p.norm2(x))
 
 
+class SharedBlock(nn.Module):
+    """zamba2's shared attention block (the reference's
+    ``shared_block_init``): attention and MLP at width ``2 d_model`` on
+    ``concat(hidden, embedding)``, and the projection back to ``d_model``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        hcfg = cfg.hybrid
+        dd = 2 * cfg.d_model
+        width = hcfg.shared_n_heads * (dd // hcfg.shared_n_heads)
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.norm1 = Norm(cfg.norm_kind, dd, dtype=dtype, device=device)
+        self.wq = Dense(dd, width, **kw)
+        self.wk = Dense(dd, width, **kw)
+        self.wv = Dense(dd, width, **kw)
+        self.wo = Dense(width, dd, **kw)
+        self.norm2 = Norm(cfg.norm_kind, dd, dtype=dtype, device=device)
+        self.ffn = MLP(dd, hcfg.shared_d_ff, cfg.mlp_kind, **kw)
+        self.proj = Dense(dd, cfg.d_model, **kw)
+
+
+def shared_block_apply(p: SharedBlock, cfg: ModelConfig, x: torch.Tensor,
+                       emb0: torch.Tensor, positions: torch.Tensor, *,
+                       cache=None, cache_index: Optional[Index] = None
+                       ) -> torch.Tensor:
+    """x, emb0: (B, S, d). The shared block on ``concat(x, emb0)`` (width
+    2d), projected back to d and added to x. ``cache``: the group's (k, v)
+    views, written in place at ``cache_index`` (0 when None). Its attention
+    is the plain one (:func:`sdpa_reference`), as in the reference: its
+    head dim (160 at zamba2-2.7b) is not one K3 is built for."""
+    hcfg = cfg.hybrid
+    dd = 2 * cfg.d_model
+    nh = hcfg.shared_n_heads
+    hd = dd // nh
+    b, s, _ = x.shape
+    z = torch.cat([x, emb0], dim=-1)
+    h = p.norm1(z)
+    q = apply_rope(p.wq(h).reshape(b, s, nh, hd), positions, cfg.rope_theta)
+    k = apply_rope(p.wk(h).reshape(b, s, nh, hd), positions, cfg.rope_theta)
+    v = p.wv(h).reshape(b, s, nh, hd)
+    if cache is not None:
+        idx = cache_index if cache_index is not None else 0
+        ck, cv = cache
+        cache_update(ck, k, idx)
+        cache_update(cv, v, idx)
+        out = sdpa_reference(q, ck, cv, causal=True, q_positions=positions,
+                             kv_valid_len=idx + s)
+    else:
+        out = sdpa_reference(q, k, v, causal=True)
+    z = z + p.wo(out.reshape(b, s, nh * hd))
+    z = z + p.ffn(p.norm2(z))
+    return x + p.proj(z)
+
+
 class Transformer(nn.Module):
-    """A dense decoder: embedding, ``L`` blocks, final norm and LM head
-    (tied to the embedding where the config says so)."""
+    """A decoder: embedding, ``L`` blocks (attention blocks for the dense
+    family, mamba blocks for ``ssm`` and ``hybrid``), the hybrid's shared
+    block, final norm and LM head (tied to the embedding where the config
+    says so)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  dtype: torch.dtype, device):
@@ -72,9 +163,16 @@ class Transformer(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model,
                                generator=generator, **kw)
+        if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.period:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
+                             f"split into super-layers of "
+                             f"{cfg.hybrid.period}")
+        kind = Block if cfg.family == "dense" else MambaBlock
         self.blocks = nn.ModuleList(
-            Block(cfg, generator=generator, **kw)
+            kind(cfg, generator=generator, **kw)
             for _ in range(cfg.n_layers))
+        self.shared = (SharedBlock(cfg, generator=generator, **kw)
+                       if cfg.family == "hybrid" else None)
         self.final_norm = Norm(cfg.norm_kind, cfg.d_model, **kw)
         self.lm_head = (None if cfg.tie_embeddings else
                         Dense(cfg.d_model, cfg.vocab_size,
@@ -100,9 +198,12 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
             cache_index: Optional[Index] = None) -> torch.Tensor:
     """Hidden states after the final norm, ``(B, S, d_model)``.
 
-    With ``cache``, every layer writes its keys and values in place at
-    ``cache_index`` (an int, or per-row ``(B,)`` ages under ragged decode)
-    and attends to the cache; without, the tokens attend to each other."""
+    With ``cache``, every layer writes its state in place at
+    ``cache_index`` (an int, or per-row ``(B,)`` ages under ragged decode):
+    attention layers their keys and values, attending to the cache; mamba
+    layers their conv and SSD state, from zero state at a cursor of 0.
+    Without, the tokens attend to each other and mamba layers start from
+    zero state."""
     cfg = model.cfg
     h = embed(model.embed.table, tokens, scale_by_dim=cfg.embed_scale_by_dim)
     b, s = tokens.shape
@@ -111,12 +212,36 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
         offset = offset.to(h.device)[:, None]   # ragged decode: per-row ages
     positions = (offset + torch.arange(s, device=h.device)[None, :]
                  ).expand(b, s)
-    for i, block in enumerate(model.blocks):
-        layer_cache = (None if cache is None
-                       else (cache["k"][i], cache["v"][i]))
-        h = block_apply(block, cfg, h, positions, cache=layer_cache,
-                        cache_index=cache_index)
+    if cfg.family == "hybrid":
+        emb0, period = h, cfg.hybrid.period
+        for g in range(cfg.n_layers // period):
+            h = shared_block_apply(
+                model.shared, cfg, h, emb0, positions,
+                cache=None if cache is None else (cache["k"][g],
+                                                  cache["v"][g]),
+                cache_index=cache_index)
+            for i in range(period):
+                h = block_apply(
+                    model.blocks[g * period + i], cfg, h, positions,
+                    cache=None if cache is None else _mamba_layer(cache,
+                                                                  g, i),
+                    cache_index=cache_index)
+    else:
+        for i, block in enumerate(model.blocks):
+            layer_cache = None
+            if cache is not None:
+                layer_cache = ((cache["k"][i], cache["v"][i])
+                               if cfg.family == "dense"
+                               else _mamba_layer(cache, i))
+            h = block_apply(block, cfg, h, positions, cache=layer_cache,
+                            cache_index=cache_index)
     return model.final_norm(h)
+
+
+def _mamba_layer(cache: Cache, *layer: int) -> MambaCache:
+    """One mamba layer's views: ``layer`` is ``(i,)`` into ``(L, ...)``
+    leaves or ``(group, i)`` into the hybrid's ``(groups, period, ...)``."""
+    return MambaCache(*(cache[k][layer] for k in MambaCache._fields))
 
 
 def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
@@ -127,29 +252,57 @@ def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device="cuda") -> Cache:
-    """The decode cache of the dense family: a write cursor ``index`` and
-    the stacked ``(L, B, S_max, Hkv, hd)`` keys and values."""
+    """The family's decode cache, zeros on ``device``, with a write cursor
+    ``index``:
+
+    * dense: keys and values ``(L, B, S_max, Hkv, hd)`` in ``dtype``;
+    * ssm: the mamba state of :func:`init_mamba_cache`, ``(L, B, ...)``
+      (float32, as the reference's);
+    * hybrid: the shared block's keys and values ``(groups, B, S_max,
+      heads, hd)`` in ``dtype`` and the mamba state ``(groups, period, B,
+      ...)``."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"no decode cache for the {cfg.family!r} "
                                   f"family yet (ROADMAP.md, slice 11)")
-    return {"index": 0, **init_kv_cache(cfg, batch, max_len, dtype,
-                                         device=device)}
+    if cfg.family == "dense":
+        return {"index": 0, **init_kv_cache(cfg, batch, max_len, dtype,
+                                             device=device)}
+    if cfg.family == "ssm":
+        return {"index": 0, **init_mamba_cache(cfg, batch, device=device)}
+    hcfg = cfg.hybrid
+    groups = cfg.n_layers // hcfg.period
+    hd = 2 * cfg.d_model // hcfg.shared_n_heads
+    shape = (groups, batch, max_len, hcfg.shared_n_heads, hd)
+    mamba = init_mamba_cache(cfg, batch, n_layers=groups * hcfg.period,
+                             device=device)
+    return {"index": 0,
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            **{k: v.view(groups, hcfg.period, *v.shape[1:])
+               for k, v in mamba.items()}}
 
 
 def cache_slot_view(cache: Cache, slot: int) -> Cache:
     """A single-sequence view of slot ``slot`` of a batched cache, cursor
     at 0: a prefill through it writes straight into the arena (the
     reference's ``cache_slot_slice`` + ``cache_slot_put`` without the
-    copies)."""
-    return {"index": 0, "k": cache["k"][:, slot:slot + 1],
-            "v": cache["v"][:, slot:slot + 1]}
+    copies). The batch axis of each leaf is found from its trailing dims,
+    so the layouts of every family share this view."""
+    view = {"index": 0}
+    for key, leaf in cache.items():
+        if key != "index":
+            axis = leaf.dim() - 1 - _CACHE_TRAILING[key]
+            view[key] = leaf.narrow(axis, slot, 1)
+    return view
 
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, cache: Cache):
     """Process the prompt ``tokens`` (B, S) at the cache's cursor; returns
     ``(last-position logits (B, vocab), cache)`` with the cache written in
-    place and its cursor advanced by S."""
+    place and its cursor advanced by S. At cursor 0 the mamba layers start
+    from zero state; a multi-token prompt at a cursor > 0 of a model with
+    mamba layers raises ``NotImplementedError``."""
     h = forward(model, tokens, cache=cache, cache_index=cache["index"])
     logits = logits_from_hidden(model, h[:, -1:])
     cache["index"] += tokens.shape[1]

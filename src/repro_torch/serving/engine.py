@@ -67,7 +67,8 @@ class EngineMetrics:
 class ServingEngine:
     """Single-replica engine; slots/max_len are Demeter's knobs.
 
-    ``model`` is a :class:`~repro_torch.models.Transformer`; it is moved to
+    ``model`` is a :class:`~repro_torch.models.Transformer` of a ported
+    family (dense, ssm or hybrid); it is moved to
     ``device`` (the card unless the caller passes ``device="cpu"``) if it
     lies elsewhere. The cache's dtype follows the model's parameters.
     """
@@ -110,7 +111,9 @@ class ServingEngine:
         return admitted
 
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
-        # Single-sequence prefill through a view of the slot's cache lines.
+        # Single-sequence prefill through a view of the slot's cache lines,
+        # cursor at 0: the mamba layers start from zero state whatever the
+        # slot's previous request left there (the reference's do not).
         prompt = torch.as_tensor(np.asarray(req.tokens, np.int64),
                                  device=self.device)[None, :]
         logits, _ = prefill(self.model, prompt,

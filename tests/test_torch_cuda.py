@@ -6,12 +6,14 @@ has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-They hold the fused-tick, RLS and decode-attention kernels against their
-plain versions, and the fused engine, a short Demeter sweep and a small
-serving run on the card against the same runs on the CPU.
+They hold the fused-tick, RLS, decode-attention and SSD-scan kernels
+against their plain versions, and the fused engine, a short Demeter sweep
+and small serving runs (dense, mamba2, zamba2) on the card against the same
+runs on the CPU.
 ``chip_smoke.py`` does the same at the main paths' full size.
 """
 import copy
+import math
 
 import numpy as np
 import pytest
@@ -26,8 +28,9 @@ from repro_torch.kernels import decode_attention as attn_mod
 from repro_torch.kernels import fused_tick as kmod
 from repro_torch.kernels import ops
 from repro_torch.kernels import rls_update as rls_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.ref import (decode_attention_ref, fused_tick_ref,
-                                     rls_rank1_update_ref)
+                                     rls_rank1_update_ref, ssd_scan_ref)
 from repro_torch.models import init_params
 from repro_torch.serving import Request, ServingEngine
 
@@ -264,4 +267,122 @@ def test_serving_on_card_matches_cpu(cuda):
                             if dev == "cuda" else 0)
         assert eng.metrics.completed == 5
         outputs[dev] = [eng.requests[f"r{i}"].output for i in range(5)]
+    assert outputs["cuda"] == outputs["cpu"]
+
+
+def _ssd_operands(B, S, H, P, G, N, dtype, device, a_log_max=1.5,
+                  dt_max=0.1, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt, device=device)
+    return (t(rng.normal(size=(B, S, H, P))),
+            t(rng.uniform(0.001, dt_max, (B, S, H)), torch.float32),
+            t(rng.uniform(0.0, a_log_max, H), torch.float32),
+            t(rng.normal(size=(B, S, G, N))), t(rng.normal(size=(B, S, G, N))))
+
+
+def _ssd_agrees(got, want, dtype, tol):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.isfinite().all()
+        err = (g.float() - w.float()).abs()
+        assert float((err - tol * w.float().abs()).max()) <= tol, \
+            float(err.max())
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 2048, 64, 64, 1, 128, 256),      # mamba2-1.3b's prefill
+    (1, 2048, 80, 64, 1, 64, 256),       # zamba2-2.7b's prefill
+    (2, 512, 4, 64, 1, 128, 128),        # tests/test_kernels.py's shapes
+    (1, 256, 8, 64, 2, 128, 256),
+    (2, 256, 4, 64, 4, 128, 128),
+    (1, 100, 3, 32, 1, 32, 20),          # a chunk that no tile divides
+    (2, 64, 4, 16, 1, 16, 16)])          # the smoke configs'
+def test_ssd_scan_kernel_matches_plain_version(cuda, B, S, H, P, G, N,
+                                               chunk, dtype, tol):
+    """y and the final state within ``tol`` (atol and rtol) of the plain
+    version's: the reference's 5e-5 in float32, and in bf16 the output's
+    rounding."""
+    args = _ssd_operands(B, S, H, P, G, N, dtype, cuda,
+                         a_log_max=math.log(16) if S == 2048 else 1.5)
+    before = ssd_mod.ssd_scan.launches
+    got = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.ssd_scan.launches == before + 1
+    _ssd_agrees(got, ssd_scan_ref(*args, chunk), dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_ssd_scan_kernel_under_strong_decay(cuda, dtype, tol):
+    """A up to 16 and dt up to 1: exp(cum_i - cum_j) would overflow above
+    the diagonal, where the kernel never computes it; no NaN."""
+    args = _ssd_operands(1, 2048, 64, 64, 1, 128, dtype, cuda,
+                         a_log_max=math.log(16), dt_max=1.0)
+    got = ssd_mod.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    _ssd_agrees(got, ssd_scan_ref(*args, 256), dtype, tol)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_rejects_bad_operands(cuda):
+    x, dt, a_log, b, c = _ssd_operands(1, 64, 4, 64, 2, 128, torch.float32,
+                                       cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ssd_mod.ssd_scan(x.half(), dt, a_log, b.half(), c.half(), chunk=16)
+    with pytest.raises(TypeError, match="b must be"):
+        ssd_mod.ssd_scan(x, dt, a_log, b.bfloat16(), c, chunk=16)
+    with pytest.raises(TypeError, match="dt must be"):
+        ssd_mod.ssd_scan(x, dt.double(), a_log, b, c, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_mod.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                         dt, a_log, b, c, chunk=16)
+    with pytest.raises(ValueError, match="divide"):
+        ssd_mod.ssd_scan(x, dt, a_log, b, c, chunk=48)
+    with pytest.raises(ValueError, match="head dims"):
+        ssd_mod.ssd_scan(x[..., :48].contiguous(), dt, a_log, b, c,
+                         chunk=16)
+    with pytest.raises(ValueError, match="groups"):
+        ssd_mod.ssd_scan(x[:, :, :3].contiguous(), dt[..., :3].contiguous(),
+                         a_log[:3].contiguous(), b, c, chunk=16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_mod.ssd_scan(x, dt, a_log.cpu(), b, c, chunk=16)
+    long = _ssd_operands(1, 16384, 4, 64, 2, 128, torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_mod.ssd_scan(*long, chunk=16384)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2_1p3b", "zamba2_2p7b"])
+def test_state_space_serving_on_card_matches_cpu(cuda, arch):
+    """The smoke configs (chunk 16) in float32 serve the same requests on
+    the card, through K5, and on the CPU, through its plain version: a
+    one-token prompt, prompts across chunks, slots reused; equal tokens,
+    and K5 launched once per layer and prefill of more than one token."""
+    cfg = smoke_config(arch)
+    cpu_model = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    lens = (1, 12, 37, 9, 20)
+    outputs = {}
+    for dev, model in (("cuda", copy.deepcopy(cpu_model)), ("cpu",
+                                                            cpu_model)):
+        eng = ServingEngine(cfg, model, n_slots=3, max_len=64, device=dev)
+        rng = np.random.default_rng(0)
+        for i, n in enumerate(lens):
+            eng.submit(Request(f"r{i}", rng.integers(0, cfg.vocab_size, n),
+                               max_tokens=6, arrival_s=0.0))
+        before = ssd_mod.ssd_scan.launches
+        while eng.queue or eng.cache_mgr.active():
+            eng.admit()
+            eng.step()
+        launches = ssd_mod.ssd_scan.launches - before
+        assert launches == (sum(n > 1 for n in lens) * cfg.n_layers
+                            if dev == "cuda" else 0)
+        assert eng.metrics.completed == len(lens)
+        outputs[dev] = [eng.requests[f"r{i}"].output
+                        for i in range(len(lens))]
     assert outputs["cuda"] == outputs["cpu"]

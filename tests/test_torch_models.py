@@ -45,6 +45,7 @@ from repro_torch.interop import (load_reference_params,  # noqa: E402
 from repro_torch.models import (decode_step, init_cache,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.models import attention, layers  # noqa: E402
+from repro_torch.models.transformer import PORTED_FAMILIES  # noqa: E402
 from repro_torch.kernels.ref import decode_attention_ref  # noqa: E402
 
 DENSE = ["qwen2_7b", "gemma_7b", "mistral_nemo_12b", "deepseek_7b"]
@@ -105,12 +106,20 @@ def test_configs_carry_across(arch):
 
 
 def test_non_dense_families_are_refused():
+    """The families not ported yet (moe, mla, encoder, vlm) are refused;
+    dense, ssm and hybrid build."""
+    refused = set()
     for arch in ARCH_IDS:
         cfg = smoke_config(arch)
-        if cfg.family == "dense":
+        if cfg.family in PORTED_FAMILIES:
             continue
+        refused.add(cfg.family)
         with pytest.raises(NotImplementedError, match="slice 11"):
             init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="slice 11"):
+            init_cache(cfg, 1, 8, device="cpu")
+    assert refused == {"moe", "encoder", "vlm"}
+    assert PORTED_FAMILIES == ("dense", "ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
