@@ -10,10 +10,15 @@ Phases, each of which exits non-zero on failure:
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the shapes both main paths give it and larger ones, with CUDA-event
    times: ``fused_tick`` (K2), ``rls_update`` (K1, float64 and float32),
-   ``decode_attention`` (K3) and ``ssd_scan`` (K5: the mamba2 and zamba2
+   ``decode_attention`` (K3), ``ssd_scan`` (K5: the mamba2 and zamba2
    prefill shapes in bf16 and float32, the reference tests' shapes in
    float32, and strong decay, within 5e-5 in float32 and 2e-2 in bf16 of
-   its plain version, atol and rtol);
+   its plain version, atol and rtol) and ``flash_attention`` (K4: the
+   hubert-xlarge and pixtral-12b shapes in bf16 beside
+   ``scaled_dot_product_attention``, one layer of the reference's
+   prefill_32k encoder cell, the reference tests' shapes in float32 both
+   causal and not, gemma's head dim and a ragged length of 300; within
+   2e-5 in float32 and 2e-2 in bf16);
 4. baseline path: ``SweepEngine``/``run_sweep`` over a baseline-controller
    grid (traces ysb and tsw x static/reactive/ds2 x seeds 0-47 = 288
    scenarios, the paper's 18 h at dt = 5 s, a failure every 45 minutes) on
@@ -59,13 +64,29 @@ Phases, each of which exits non-zero on failure:
     KV cache for 16 x 4096 positions), 16 requests of 256-2048 prompt
     tokens, 32 new tokens; K5 launches 54 x 16 = 864 times;
 14. zamba2, card against CPU: one super-layer (6 layers), float32, 2
-    requests, judged as phase 9.
+    requests, judged as phase 9;
+15. the encoder path: hubert-xlarge at full width in bfloat16 (48 layers)
+    ``encode``s 8 clips of 4096 frames 3 times after a warm-up; every logit
+    is finite, of shape (8, 4096, 504), and K4 launches 48 times a call;
+    frames/s, the wall per call, peak memory and one call's device busy
+    and idle share;
+16. hubert, card against CPU: 2 layers at full width, float32, TF32 off, 2
+    clips of 300 frames (a partial K4 tile); logits within 1e-4 of their
+    scale, per-frame classes equal or parted by less than the difference;
+17. the vlm path: pixtral-12b at full width in bfloat16 (40 layers) takes
+    ``train_loss`` of 2 x 4096 tokens with a 512-patch prefix; the loss is
+    finite, K4 launches 40 times, and the same model on the plain
+    attention route gives the loss within 1e-2;
+18. pixtral, card against CPU: 2 layers at full width, float32, TF32 off,
+    1 x 256 tokens with 64 patches; the loss within 1e-5 and the logits
+    within 1e-4 of their scale.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
 ``kernels`` line reports each kernel's launches on its own main path (K1
 and K2 on the Demeter path, K3 on the qwen2-7b serving path, K5 on the
-mamba2-1.3b one) beside its times at that path's shapes.
+mamba2-1.3b one, K4 on the hubert-xlarge encoder path) beside its times
+at that path's shapes.
 
     python3 chip_smoke.py                     # from the root of a checkout
 """
@@ -90,6 +111,8 @@ FP64_OPS_PER_S = 34e12
 FP32_OPS_PER_S = 67e12
 #: H100 SXM data sheet: dense TF32 tensor-core rate, the SSD scan's peak
 TF32_OPS_PER_S = 494.7e12
+#: H100 SXM data sheet: dense bf16 tensor-core rate
+BF16_OPS_PER_S = 989.4e12
 
 #: Row counts the fused-tick check uses; 288 is the baseline path's width,
 #: and the Demeter main path's own row count is added.
@@ -149,6 +172,29 @@ SSD_BARS = {"float32": 5e-5, "bfloat16": 2e-2}
 SSD_TEST_SHAPES = ((2, 512, 4, 64, 1, 128, 128), (1, 256, 8, 64, 2, 128, 256),
                    (2, 256, 4, 64, 4, 128, 128), (1, 100, 3, 32, 1, 32, 20),
                    (2, 64, 4, 16, 1, 16, 16))
+#: The cacheless forward: hubert-xlarge (48 layers, 16 heads of 80,
+#: bidirectional) encodes 8 clips of 4096 frames (82 s of audio each at
+#: 50 Hz), 3 times after a warm-up; pixtral-12b (40 layers, 32 query heads
+#: over 8 of 128, causal) takes the training loss of 2 sequences of 4096
+#: tokens with its 512-patch prefix; both at full width in bfloat16
+ENCODER_ARCH, VLM_ARCH = "hubert_xlarge", "pixtral_12b"
+ENCODE_CLIPS, ENCODE_FRAMES, ENCODE_CALLS = 8, 4096, 3
+VLM_BATCH, VLM_SEQ = 2, 4096
+#: card against CPU: (layers, batch, sequence, patch prefix); 300 frames
+#: end in a partial tile of K4
+ENCODER_CARD_VS_CPU = (2, 2, 300, 0)
+VLM_CARD_VS_CPU = (2, 1, 256, 64)
+#: K4's checks (B, Sq, Hq, Hkv, D, causal): the reference tests' shapes
+#: (tests/test_kernels.py::TestFlashAttention) in float32, both causal
+#: settings; gemma's head dim of 256 and a ragged length of 300 in both
+#: dtypes; bars as K3's (ATTN_BARS), atol and rtol
+FLASH_TEST_SHAPES = ((2, 256, 4, 2, 64), (1, 128, 8, 8, 128),
+                     (2, 256, 4, 1, 64), (1, 384, 2, 2, 256))
+FLASH_EXTRA_SHAPES = ((1, 512, 16, 16, 256, True), (2, 300, 16, 16, 80, False),
+                      (2, 300, 32, 8, 128, True))
+#: one layer of the reference's prefill_32k cell for the encoder
+#: (launch/dryrun.py) at batch 1: 32 768 frames, hubert's heads
+PREFILL_32K = 32_768
 
 
 def fail(msg: str) -> NoReturn:
@@ -165,17 +211,18 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, n: int = 60, warmup: int = 10) -> float:
+def device_ms(fn, n: int = 60, warmup: int = 10, host_n: int = 100) -> float:
     """Median device time of one call of ``fn`` over ``n`` calls, in ms.
 
     Before each call a sleep kernel holds the stream while the host
     enqueues the call between its pair of events, so the events measure
-    the device's work and not the host's dispatch."""
+    the device's work and not the host's dispatch (timed first over
+    ``host_n`` calls)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    host_s = host_ms(fn) * 1e-3
+    host_s = host_ms(fn, n=host_n) * 1e-3
     # at most ~2 GHz: this many cycles outlast twice the host's enqueue time
     cycles = int(4e9 * host_s) + 200_000
     times = []
@@ -438,6 +485,80 @@ def check_ssd_scan(B: int, S: int, H: int, P: int, G: int, N: int,
                 "plain_ms": device_ms(plain, n=10, warmup=2),
                 "library_ms": None, "dispatch_ms": host_ms(call, n=20),
                 **bound(n_bytes, n_ops, TF32_OPS_PER_S)})
+    return out
+
+
+def flash_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs flash attention computes: all of them, or, when
+    causal, key j <= query i (top-left aligned)."""
+    if not causal:
+        return sq * skv
+    m = min(sq, skv)
+    return m * (m + 1) // 2 + (sq - m) * skv
+
+
+def check_flash_attention(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype,
+                          causal: bool, *, timed: bool = False,
+                          plain_rows: int = 0, n: int = 20) -> dict:
+    """The CUDA flash attention against its plain version, every output
+    within ``ATTN_BARS`` (atol and rtol) and finite; its device time; with
+    ``timed`` also the plain version's, the bound (4 D operations per
+    (query, key) pair over the bf16 or TF32 tensor-core rate, or each
+    input read and the output written once over HBM, the larger) and
+    ``scaled_dot_product_attention`` on the same values laid out as it
+    wants them, ``(B, H, S, D)`` (the library call, timed only).
+    ``plain_rows`` > 0 runs the plain version on that many query rows at a
+    time (not causal only), where its float32 scores would not fit
+    whole."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kmod
+    from repro_torch.kernels.ref import flash_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(B * 7 + Sq + D)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((B, Sq, Hq, D), (B, Sq, Hkv, D),
+                             (B, Sq, Hkv, D)))
+    got = kmod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    label = (f"flash_attention B={B} S={Sq} Hq={Hq} Hkv={Hkv} D={D} {name} "
+             f"{'causal' if causal else 'bidirectional'}")
+    tol = ATTN_BARS[name]
+    if not bool(got.isfinite().all()):
+        fail(f"{label}: the kernel's output is not finite")
+    err = share = 0.0
+    step = plain_rows or Sq
+    if plain_rows and causal:
+        fail(f"{label}: the plain version by row blocks is not causal")
+    for i in range(0, Sq, step):
+        want = flash_attention_ref(q[:, i:i + step], k, v,
+                                   causal=causal).float()
+        diff = (got[:, i:i + step].float() - want).abs()
+        err = max(err, float(diff.max()))
+        share = max(share, float((diff / (tol * (1.0 + want.abs()))).max()))
+        del want, diff
+    if not share <= 1.0:
+        fail(f"{label}: differs from the plain version by {err} (bar {tol} "
+             f"+ {tol}|plain|)")
+    out = {"B": B, "S": Sq, "Hq": Hq, "Hkv": Hkv, "D": D, "dtype": name,
+           "causal": causal, "max_abs_err": err, "bar_share": share}
+    call = lambda: kmod.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    out["ms"] = device_ms(call, n=n, warmup=3, host_n=n)
+    if not timed:
+        return out
+    item = q.element_size()
+    n_bytes = 2 * (q.numel() + k.numel()) * item
+    n_ops = 4 * B * Hq * D * flash_pairs(Sq, Sq, causal)
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32_OPS_PER_S
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    plain = lambda: flash_attention_ref(q, k, v, causal=causal)  # noqa: E731
+    out.update({"flops": n_ops, "bytes": n_bytes,
+                "plain_ms": device_ms(plain, n=5, warmup=1, host_n=3),
+                "library_ms": device_ms(library, n=n, warmup=3, host_n=n),
+                "dispatch_ms": host_ms(call, n=n),
+                **bound(n_bytes, n_ops, rate)})
     return out
 
 
@@ -851,6 +972,65 @@ def demeter_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
 # the serving path
 # ---------------------------------------------------------------------------
 
+class CpuThreads:
+    """All of the host's cores for torch while a full-width CPU leg runs
+    (the script keeps torch on one thread otherwise)."""
+
+    def __enter__(self):
+        import os
+        import torch
+        self.n = torch.get_num_threads()
+        torch.set_num_threads(os.cpu_count() or 1)
+
+    def __exit__(self, *exc):
+        import torch
+        torch.set_num_threads(self.n)
+
+
+class NoTF32:
+    """float32 products in full float32 on the card (no TF32) inside."""
+
+    def __enter__(self):
+        import torch
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def device_busy(fn) -> dict:
+    """One call of ``fn`` on the host clock and under ``torch.profiler``:
+    the device's busy time (the sum of its kernels), its idle share of the
+    call and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"call_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               for e in top}}
+
+
+def largest_rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
 class LogitsWatch:
     """Wraps the serving engine's ``prefill`` and ``decode_step`` for one
     run: a device-side flag that every logit seen was finite (read once at
@@ -921,11 +1101,9 @@ def serve(eng, prompts, max_tokens: int, keep_logits: bool = False):
 def decode_profile(eng, prompts, warmup: int = 3, steps: int = 5) -> dict:
     """Fill every slot of ``eng`` with ``prompts``, then time ``steps``
     full-batch decode steps on the host clock and trace the same number
-    under ``torch.profiler``: the device's busy time per step (the sum of
-    its kernels), its idle share of the step and the kernels that take
-    the most device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    under ``torch.profiler`` (:func:`device_busy`): the device's busy time
+    per step, its idle share of the step and the kernels that take the
+    most device time."""
     from repro_torch.serving import Request
     for i, pr in enumerate(prompts):
         eng.submit(Request(f"p{i}", pr, max_tokens=warmup + 2 * steps + 2,
@@ -933,25 +1111,16 @@ def decode_profile(eng, prompts, warmup: int = 3, steps: int = 5) -> dict:
     eng.admit()
     for _ in range(warmup):
         eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        eng.step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run_steps():
         for _ in range(steps):
             eng.step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"step_ms": step_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / step_ms,
-            "top_kernels_ms_per_step": {
-                e.key[:60]: e.self_device_time_total / 1e3 / steps
-                for e in top}}
+    p = device_busy(run_steps)
+    return {"step_ms": p["call_ms"] / steps,
+            "device_busy_ms": p["device_busy_ms"] / steps,
+            "idle_share": p["idle_share"],
+            "top_kernels_ms_per_step": {k: v / steps for k, v in
+                                        p["top_kernels_ms"].items()}}
 
 
 def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
@@ -1077,11 +1246,7 @@ def serving_card_vs_cpu(devices=("cuda", "cpu"), arch: str = SERVE_ARCH
     from repro_torch.serving import ServingEngine
     layers, n_requests, prompt_lens, new_tokens = CARD_VS_CPU[arch]
     cfg = get_config(arch).scaled(n_layers=layers)
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with NoTF32():
         first = init_params(cfg, seed=0, device=devices[0],
                             dtype=torch.float32)
         models = [first, copy.deepcopy(first).to(devices[1])]
@@ -1098,17 +1263,13 @@ def serving_card_vs_cpu(devices=("cuda", "cpu"), arch: str = SERVE_ARCH
             runs.append((wall, watch.logits,
                          [eng.requests[f"r{i}"].output
                           for i in range(n_requests)]))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = tf32
     (card_wall, a, card_out), (cpu_wall, b, cpu_out) = runs
     if len(a) != len(b):
         fail(f"{arch} card vs CPU: {len(a)} vs {len(b)} model calls")
     call, where, explained = first_token_difference(a, b)
     # logits stay comparable up to the first differing pick
     calls = len(a) if call is None else call + 1
-    rel = max(float((x - y).abs().max() / y.abs().max())
-              for x, y in zip(a[:calls], b[:calls]))
+    rel = max(largest_rel(x, y) for x, y in zip(a[:calls], b[:calls]))
     if card_out != cpu_out or call is not None:
         print(f"{arch} card vs CPU: picks differ at {where}", flush=True)
         if not explained:
@@ -1149,6 +1310,230 @@ def autoscaled_serving(device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the cacheless forward: encoder and vlm
+# ---------------------------------------------------------------------------
+
+def sync(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def encoder_main_path(device: str = "cuda", clips: int = ENCODE_CLIPS,
+                      frames: int = ENCODE_FRAMES) -> dict:
+    """Phase 15: hubert-xlarge at full width in bfloat16 encodes ``clips``
+    clips of ``frames`` frames ``ENCODE_CALLS`` times after a warm-up; K4
+    launches once per layer and call."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models import encode, init_params
+    on_card = device == "cuda"
+    cfg = get_config(ENCODER_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=device).manual_seed(0)
+    batch = {"frames": torch.randn((clips, frames, cfg.frontend.d_in),
+                                   generator=g, device=device
+                                   ).to(torch.bfloat16)}
+    encode(model, batch)                                   # warm-up
+    sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    k4.flash_attention.launches = 0
+    walls, finite = [], True
+    for _ in range(ENCODE_CALLS):
+        t0 = time.perf_counter()
+        logits = encode(model, batch)
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+        finite = finite and bool(logits.isfinite().all())
+    launches = k4.flash_attention.launches
+    want_shape = (clips, frames, cfg.vocab_size)
+    if tuple(logits.shape) != want_shape or not finite:
+        fail(f"{ENCODER_ARCH} encode: logits {tuple(logits.shape)} "
+             f"(expected {want_shape}), finite {finite}")
+    if on_card and launches != ENCODE_CALLS * cfg.n_layers:
+        fail(f"{ENCODER_ARCH} encode: {launches} flash_attention launches "
+             f"in {ENCODE_CALLS} calls, expected {cfg.n_layers} per call")
+    wall = statistics.median(walls)
+    out = {"arch": ENCODER_ARCH, "params": sum(p.numel()
+                                               for p in model.parameters()),
+           "init_s": init_s, "clips": clips, "frames": frames,
+           "calls": ENCODE_CALLS, "wall_s": walls, "median_wall_s": wall,
+           "frames_per_s": clips * frames / wall,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if on_card else None),
+           "launches": {"flash_attention": launches},
+           "launches_per_call": launches // ENCODE_CALLS,
+           "profile": (device_busy(lambda: encode(model, batch))
+                       if on_card else None)}
+    print("encoder main path " + json.dumps(out), flush=True)
+    return out
+
+
+def encoder_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """Phase 16: hubert-xlarge at full width but ``ENCODER_CARD_VS_CPU``'s
+    layers, float32 with TF32 off, the same weights and frames on the card
+    (K4) and on the CPU (its plain version); the logits within 1e-4 of
+    their scale, and each frame's class equal or, where it differs, its
+    top-2 gap (on the CPU) below the frame's logit difference."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models import encode, init_params
+    layers, b, s, _ = ENCODER_CARD_VS_CPU
+    cfg = get_config(ENCODER_ARCH).scaled(n_layers=layers)
+    frames = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (b, s, cfg.frontend.d_in)).astype(np.float32))
+    with NoTF32():
+        model = init_params(cfg, seed=0, device=devices[0],
+                            dtype=torch.float32)
+        k4.flash_attention.launches = 0
+        card = encode(model, {"frames": frames.to(devices[0])}).cpu()
+        launches = k4.flash_attention.launches
+    model = model.to(devices[1])
+    with CpuThreads():
+        cpu = encode(model, {"frames": frames.to(devices[1])}).cpu()
+    if devices[0] == "cuda" and launches != layers:
+        fail(f"{ENCODER_ARCH} card vs CPU: {launches} flash_attention "
+             f"launches, expected {layers}")
+    rel = largest_rel(card, cpu)
+    a, c = card.reshape(-1, card.shape[-1]), cpu.reshape(-1, cpu.shape[-1])
+    differ = (a.argmax(-1) != c.argmax(-1)).nonzero().flatten().tolist()
+    for r in differ:
+        top2 = c[r].topk(2).values
+        gap, diff = float(top2[0] - top2[1]), float((a[r] - c[r]).abs().max())
+        if not gap < diff:
+            fail(f"{ENCODER_ARCH} card vs CPU: frame {r} classes "
+                 f"{int(a[r].argmax())} vs {int(c[r].argmax())}, top-2 gap "
+                 f"{gap} >= logit difference {diff}")
+    if not rel < 1e-4:
+        fail(f"{ENCODER_ARCH} card vs CPU: relative logit difference {rel}")
+    out = {"arch": ENCODER_ARCH, "layers": layers, "clips": b, "frames": s,
+           "max_rel_logit_diff": rel, "classes_differ": len(differ),
+           "launches": launches}
+    print("encoder card vs cpu " + json.dumps(out), flush=True)
+    return out
+
+
+def vlm_batch(cfg, b: int, s: int, prefix: int, dtype, device, seed: int = 0):
+    """Random tokens and labels (seeded NumPy) and a patch prefix of
+    ``prefix`` embeddings for a vlm's ``train_loss``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, s))).to(device),
+            "labels": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, s))).to(device),
+            "patches": torch.from_numpy(rng.normal(
+                0, 1, (b, prefix, cfg.frontend.d_in)).astype(np.float32)
+            ).to(device=device, dtype=dtype)}
+
+
+def vlm_main_path(device: str = "cuda", seq: int = VLM_SEQ) -> dict:
+    """Phase 17: pixtral-12b at full width in bfloat16 takes the training
+    loss of ``VLM_BATCH`` sequences of ``VLM_SEQ`` tokens with its patch
+    prefix; K4 launches once per layer; the same model on the reference
+    route (the plain attention) gives the loss within 1e-2."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.pixtral_12b import PATCH_PREFIX
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models import init_params, train_loss
+    on_card = device == "cuda"
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    batch = vlm_batch(cfg, VLM_BATCH, seq, PATCH_PREFIX, torch.bfloat16,
+                      device)
+    train_loss(model, batch)                               # warm-up
+    sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    k4.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    loss, parts = train_loss(model, batch)
+    loss = float(loss)
+    wall = time.perf_counter() - t0
+    launches = k4.flash_attention.launches
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if on_card
+               else None)
+    if on_card and launches != cfg.n_layers:
+        fail(f"{VLM_ARCH} train_loss: {launches} flash_attention launches, "
+             f"expected {cfg.n_layers}")
+    model.cfg = dataclasses.replace(cfg, attention_impl="reference")
+    t0 = time.perf_counter()
+    with torch.no_grad():           # that route keeps autograd's graph
+        ref_loss = float(train_loss(model, batch)[0])
+    ref_wall = time.perf_counter() - t0
+    model.cfg = cfg
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    if not (math.isfinite(loss) and rel < 1e-2):
+        fail(f"{VLM_ARCH} train_loss: {loss} on the kernel route, "
+             f"{ref_loss} on the reference route")
+    out = {"arch": VLM_ARCH, "params": sum(p.numel()
+                                           for p in model.parameters()),
+           "init_s": init_s, "batch": VLM_BATCH, "seq": seq,
+           "patches": PATCH_PREFIX, "loss": loss, "ce": float(parts["ce"]),
+           "reference_route_loss": ref_loss, "rel_diff": rel,
+           "wall_s": wall, "reference_route_wall_s": ref_wall,
+           "tokens_per_s": VLM_BATCH * seq / wall,
+           "peak_memory_gb": peak_gb,
+           "launches": {"flash_attention": launches}}
+    print("vlm main path " + json.dumps(out), flush=True)
+    return out
+
+
+def vlm_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """Phase 18: pixtral-12b at full width but ``VLM_CARD_VS_CPU``'s
+    layers, float32 with TF32 off, on the card and on the CPU: the loss
+    within 1e-5 and the logits (with the patch prefix) within 1e-4 of
+    their scale."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (forward, init_params, logits_from_hidden,
+                                    train_loss)
+    layers, b, s, prefix = VLM_CARD_VS_CPU
+    cfg = get_config(VLM_ARCH).scaled(n_layers=layers)
+    batch = vlm_batch(cfg, b, s, prefix, torch.float32, "cpu", seed=3)
+
+    def run(model, device):
+        on = {k: v.to(device) for k, v in batch.items()}
+        loss = float(train_loss(model, on)[0])
+        with torch.no_grad():
+            logits = logits_from_hidden(model, forward(
+                model, on["tokens"], patches=on["patches"])).cpu()
+        return loss, logits
+    with NoTF32():
+        model = init_params(cfg, seed=0, device=devices[0],
+                            dtype=torch.float32)
+        card = run(model, devices[0])
+    model = model.to(devices[1])
+    with CpuThreads():
+        cpu = run(model, devices[1])
+    del model
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    rel = largest_rel(card[1], cpu[1])
+    if not (loss_rel < 1e-5 and rel < 1e-4):
+        fail(f"{VLM_ARCH} card vs CPU: loss {card[0]} vs {cpu[0]} "
+             f"(relative {loss_rel}), relative logit difference {rel}")
+    out = {"arch": VLM_ARCH, "layers": layers, "batch": b, "seq": s,
+           "patches": prefix, "loss": dict(zip(("cuda", "cpu"),
+                                               (card[0], cpu[0]))),
+           "loss_rel_diff": loss_rel, "max_rel_logit_diff": rel}
+    print("vlm card vs cpu " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1185,7 +1570,7 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     libs = build.build_all(["fused_tick", "rls_update", "decode_attention",
-                            "ssd_scan"])
+                            "ssd_scan", "flash_attention"])
     for lib_name in libs:
         build.load(lib_name)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
@@ -1251,6 +1636,33 @@ def main() -> int:
         r = check_ssd_scan(1, SERVE_PROMPTS[1], 64, 64, 1, 128, 256, dtype,
                            a_log_max=math.log(16), dt_max=1.0)
         print("kernel ssd_scan strong decay " + json.dumps(r), flush=True)
+    # K4 at the encoder path's shape (hubert-xlarge) and the vlm path's
+    # (pixtral-12b), one layer of the reference's prefill_32k encoder cell
+    # at batch 1 (the plain version by blocks of query rows: its whole
+    # float32 score matrix would take 69 GB), then the reference tests'
+    # shapes in float32, gemma's head dim and a ragged length
+    enc, vlm = get_config(ENCODER_ARCH), get_config(VLM_ARCH)
+    flash_rows = {}
+    for key, (B, S, c, causal) in (("encoder", (ENCODE_CLIPS, ENCODE_FRAMES,
+                                                enc, False)),
+                                   ("vlm", (VLM_BATCH, VLM_SEQ, vlm, True))):
+        r = check_flash_attention(B, S, c.n_heads, c.n_kv_heads,
+                                  c.resolved_head_dim, torch.bfloat16,
+                                  causal, timed=True)
+        flash_rows[key] = r
+        print("kernel flash_attention " + json.dumps(r), flush=True)
+    r = check_flash_attention(1, PREFILL_32K, enc.n_heads, enc.n_kv_heads,
+                              enc.resolved_head_dim, torch.bfloat16, False,
+                              plain_rows=2048, n=5)
+    print("kernel flash_attention prefill_32k " + json.dumps(r), flush=True)
+    for shape in FLASH_TEST_SHAPES:
+        for causal in (True, False):
+            r = check_flash_attention(*shape, torch.float32, causal)
+            print("kernel flash_attention " + json.dumps(r), flush=True)
+    for *shape, causal in FLASH_EXTRA_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            r = check_flash_attention(*shape, dtype, causal)
+            print("kernel flash_attention " + json.dumps(r), flush=True)
     print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the baseline path ------------------------------------------------
@@ -1315,18 +1727,44 @@ def main() -> int:
 
     # -- 14. zamba2 (one super-layer), card against CPU ---------------------
     serving_card_vs_cpu(arch=HYBRID_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
 
-    # -- 15. summary lines: each kernel's launches on its main path and its
+    # -- 15. the encoder path (hubert-xlarge encode) ------------------------
+    encoder_path = encoder_main_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 16. hubert, card against CPU ---------------------------------------
+    encoder_card_vs_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 17. the vlm path (pixtral-12b train_loss) --------------------------
+    vlm_main_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 18. pixtral, card against CPU --------------------------------------
+    vlm_card_vs_cpu()
+    print(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- summary lines: each kernel's launches on its main path and its
     # times at that path's shapes
     tick = tick_rows[main_tick_rows]
     rls = rls_rows[(main_rls_rows, MAIN_K, "float64")]
     attn = attn_rows["bfloat16"]
     ssd = ssd_rows[(SSM_ARCH, "bfloat16")]
+    flash = flash_rows["encoder"]
     print(f"Demeter path launches {main_path['launches']}; serving path "
           f"launches {serve_path['launches']}; {SSM_ARCH} launches "
           f"{ssm_path['launches']}; {HYBRID_ARCH} launches "
-          f"{hybrid_path['launches']}")
+          f"{hybrid_path['launches']}; {ENCODER_ARCH} launches "
+          f"{encoder_path['launches']}")
     kernels = [{
         "name": "fused_tick", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_tick.cu",
@@ -1364,6 +1802,15 @@ def main() -> int:
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:82",
+        "launches": encoder_path["launches"]["flash_attention"],
+        "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
     }]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err") + (

@@ -178,8 +178,12 @@ def model_params_from_reference(cfg: model_config.ModelConfig,
     parameters: ``params`` is the reference's parameter tree (nested dicts)
     with NumPy leaves, as ``repro.models.init_params`` builds it. The
     layer stack's leaves are unstacked into the port's per-layer modules:
-    ``(L, ...)`` for the dense and ssm families, ``(groups, period, ...)``
-    for the hybrid, whose ``shared.*`` leaves go to the shared block. The
+    ``(L, ...)`` for the dense, ssm, encoder and vlm families,
+    ``(groups, period, ...)`` for the hybrid, whose ``shared.*`` leaves go
+    to the shared block. The other leaves keep their names: a frontend's
+    (``frontend.proj``, ``pos_conv_w``, ``pos_conv_b`` for audio;
+    ``frontend.proj1``, ``proj2`` for vision), and hubert's tree has no
+    ``embed`` and its own ``lm_head``, as the port's model. The
     model's dtype is the leaves' (``final_norm.scale``'s); float32 leaves
     of a bfloat16 model (mamba2's ``a_log``, ``dt_bias``, ``d_skip``) stay
     float32."""

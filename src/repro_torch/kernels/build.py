@@ -43,6 +43,9 @@ SIGNATURES = {
     "decode_attention": ("decode_attention_launch",
                          [_C] * 5 + [ctypes.c_int64, ctypes.c_int64]
                          + [ctypes.c_int] * 4 + [_C]),
+    "flash_attention": ("flash_attention_launch",
+                        [_C] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 5
+                        + [_C]),
     "ssd_scan": ("ssd_scan_launch",
                  [_C] * 7 + [ctypes.c_int64, ctypes.c_int64]
                  + [ctypes.c_int] * 6 + [_C]),

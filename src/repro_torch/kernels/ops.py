@@ -10,11 +10,12 @@ from __future__ import annotations
 import torch
 
 from . import decode_attention as _decode_attention
+from . import flash_attention as _flash_attention
 from . import fused_tick as _fused_tick
 from . import rls_update as _rls_update
 from . import ssd_scan as _ssd_scan
-from .ref import (decode_attention_ref, fused_tick_ref, rls_rank1_update_ref,
-                  ssd_scan_ref)
+from .ref import (decode_attention_ref, flash_attention_ref, fused_tick_ref,
+                  rls_rank1_update_ref, ssd_scan_ref)
 
 
 def rls_rank1_update(P: torch.Tensor, phi: torch.Tensor, lam: torch.Tensor):
@@ -55,6 +56,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cuda":
         return _decode_attention.decode_attention(q, k, v, lengths)
     raise ValueError(f"decode_attention takes CPU or CUDA tensors, got a "
+                     f"tensor on {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool):
+    """Grouped-query attention without a cache, causal or not; see
+    :func:`repro_torch.kernels.ref.flash_attention_ref` for the function
+    and the shapes."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type == "cuda":
+        return _flash_attention.flash_attention(q, k, v, causal=causal)
+    raise ValueError(f"flash_attention takes CPU or CUDA tensors, got a "
                      f"tensor on {q.device}")
 
 

@@ -83,6 +83,23 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.masked_fill(empty, 0.0)
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool) -> torch.Tensor:
+    """Grouped-query attention without a cache: the model's plain attention
+    (:func:`repro_torch.models.attention.sdpa_reference`) with no positions
+    and no lengths, as the reference's oracle
+    ``repro/kernels/ref.py::flash_attention_ref``.
+
+    q: ``(B, Sq, Hq, D)``; k, v: ``(B, Skv, Hkv, D)`` with ``Hq = G·Hkv``
+    (query head ``h`` reads KV head ``h // G``). ``causal`` is top-left
+    aligned: query row i sees key columns j <= i, as in the Pallas kernel.
+    Scores and sums are float32; the softmax weights are cast to v's dtype
+    before the weighted sum. Returns ``(B, Sq, Hq, D)`` in v's dtype.
+    """
+    from ..models.attention import sdpa_reference  # models import kernels
+    return sdpa_reference(q, k, v, causal=causal)
+
+
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, chunk: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -4,8 +4,10 @@ The port of ``repro/models/attention.py``. ``sdpa_reference`` is the plain
 torch attention (the reference's einsum formulation and its "lean
 softmax"); with ``cfg.attention_impl == "kernel"`` a one-token query
 against the cache goes through :func:`repro_torch.kernels.ops.decode_attention`
-(kernel K3 on the card), as the reference's ``"pallas"`` goes to its Pallas
-kernel. The cache is a per-layer ``(B, S_max, Hkv, hd)`` view of the
+(kernel K3 on the card) and a query with no cache through
+:func:`repro_torch.kernels.ops.flash_attention` (kernel K4), as the
+reference's ``"pallas"`` goes to its Pallas kernels; a prefill against a
+cache takes the plain attention, as in the reference. The cache is a per-layer ``(B, S_max, Hkv, hd)`` view of the
 model's arena, updated in place where the reference returns a new array.
 """
 from __future__ import annotations
@@ -122,10 +124,7 @@ def _sdpa(cfg: ModelConfig, q, k, v, *, causal, q_positions=None,
         if q.shape[1] == 1 and kv_valid_len is not None:
             return kops.decode_attention(q, k, v, kv_valid_len)
         if q_positions is None and kv_valid_len is None:
-            raise NotImplementedError(
-                "attention without a cache goes to flash attention (kernel "
-                "K4), which a later slice ports (ROADMAP.md, slice 11); use "
-                "attention_impl='reference' for it")
+            return kops.flash_attention(q, k, v, causal=causal)
     elif cfg.attention_impl != "reference":
         raise ValueError(f"attention_impl must be 'kernel' or 'reference', "
                          f"got {cfg.attention_impl!r}")

@@ -1,4 +1,4 @@
-"""Shared neural building blocks of the dense decoders.
+"""Shared neural building blocks of the models.
 
 The port of ``repro/models/layers.py``: plain functions on tensors that
 keep the reference's casts operation for operation (so bfloat16 rounds
@@ -14,10 +14,10 @@ reference's parameters across instead.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 
@@ -130,16 +130,30 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU, ``x * 0.5 * (1 + tanh(c0 * (x + c1 * x**3)))``, as
+    ``jax.nn.gelu(approximate=True)`` computes it: its constants rounded to
+    x's dtype and every operation rounding there. In bfloat16,
+    ``F.gelu(approximate="tanh")`` (one rounding) differs from it by an ulp
+    in about 45% of the values."""
+    c0 = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype).item()
+    c1 = torch.tensor(0.044715, dtype=x.dtype).item()
+    cdf = 0.5 * (1.0 + torch.tanh(c0 * (x + c1 * (x * x * x))))
+    return x * cdf
+
+
 # -- gated MLPs ---------------------------------------------------------------
 def mlp(x: torch.Tensor, kind: str, up: Dense, down: Dense,
         gate: Optional[Dense] = None) -> torch.Tensor:
-    """SwiGLU, GeGLU (tanh GELU) or plain tanh-GELU feed-forward."""
+    """SwiGLU, GeGLU (tanh GELU) or plain tanh-GELU feed-forward, with the
+    reference's activations (:func:`silu`, :func:`gelu_tanh`), which round
+    where ``jax.nn`` rounds."""
     if kind == "swiglu":
-        h = F.silu(gate(x)) * up(x)
+        h = silu(gate(x)) * up(x)
     elif kind == "geglu":
-        h = F.gelu(gate(x), approximate="tanh") * up(x)
+        h = gelu_tanh(gate(x)) * up(x)
     elif kind == "gelu":
-        h = F.gelu(up(x), approximate="tanh")
+        h = gelu_tanh(up(x))
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
     return down(h)
@@ -172,6 +186,25 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, *,
 
 def unembed(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return h @ table.T
+
+
+# -- losses -------------------------------------------------------------------
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean cross-entropy in float32, with an optional z-loss
+    (``z_loss * lse**2``) and a mask (the masked sum over
+    ``max(sum(mask), 1)``); the reference's ``softmax_cross_entropy``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss > 0.0:
+        loss = loss + z_loss * lse.square()
+    if mask is not None:
+        mask = mask.float()
+        return (loss * mask).sum() / mask.sum().clamp_min(1.0)
+    return loss.mean()
 
 
 class Embedding(nn.Module):

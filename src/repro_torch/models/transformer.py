@@ -1,13 +1,18 @@
-"""Model assembly: blocks, the layer loops and the serving entry points.
+"""Model assembly: blocks, the layer loops and the entry points.
 
-The port of ``repro/models/transformer.py`` for three families:
+The port of ``repro/models/transformer.py`` for five families:
 
 * dense decoders (deepseek-7b, mistral-nemo-12b, qwen2-7b, gemma-7b):
   ``[attn + MLP] x L`` with pre-norm residuals;
 * SSM (mamba2-1.3b): ``[norm + mamba2] x L``, attention-free;
 * hybrid (zamba2-2.7b): ``L / period`` super-layers, each the one shared
   attention block (on ``concat(hidden, embedding)``, width 2d, projected
-  back to d) then ``period`` mamba2 blocks.
+  back to d) then ``period`` mamba2 blocks;
+* encoder (hubert-xlarge): bidirectional ``[attn + MLP] x L`` over frame
+  embeddings, through the feature projection and the convolutional
+  positional embedding, with a per-frame classification head (``encode``);
+* VLM (pixtral-12b): the dense decoder with projected patch embeddings in
+  the sequence prefix.
 
 The reference scans stacked layer parameters with ``lax.scan``; here the
 layers are an ``nn.ModuleList`` run by a Python loop. The caches keep the
@@ -15,16 +20,20 @@ reference's stacked layouts (the KV cache ``(L, B, S_max, Hkv, hd)``, the
 mamba state ``(L, B, ...)``, the hybrid's ``(groups, ...)`` KV and
 ``(groups, period, B, ...)`` mamba leaves), and every write lands in place:
 a slot's prefill writes through a view of the arena
-(:func:`cache_slot_view`), never through a copy.
+(:func:`cache_slot_view`), never through a copy. The forward without a
+cache (``train_loss``, ``encode``) sends every attention layer to flash
+attention (kernel K4 on the card).
 
-The other families (moe, mla, encoder, vlm) are ported in a later slice
-(ROADMAP.md, slice 11): :func:`init_params` refuses them.
+The MoE and MLA families (deepseek-moe, deepseek-v2-lite) are ported in a
+later slice (ROADMAP.md, slice 11): :func:`init_params` refuses them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import contextlib
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.executor import resolve_device
@@ -32,7 +41,7 @@ from .attention import (Attention, Index, attention_apply, cache_update,
                         init_kv_cache, sdpa_reference)
 from .config import ModelConfig
 from .layers import (Dense, Embedding, MLP, Norm, apply_rope, dense, embed,
-                     unembed)
+                     gelu_tanh, softmax_cross_entropy, unembed)
 from .mamba2 import Mamba2, MambaCache, init_mamba_cache, mamba2_apply
 
 #: a decode cache: {"index": int} and the family's stacked leaves ("k",
@@ -40,7 +49,7 @@ from .mamba2 import Mamba2, MambaCache, init_mamba_cache, mamba2_apply
 Cache = Dict[str, Any]
 
 #: the families this port builds
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "encoder", "vlm")
 
 #: trailing dims after the batch axis of each cache leaf (the leading
 #: dims are layers, or groups and period)
@@ -145,11 +154,57 @@ def shared_block_apply(p: SharedBlock, cfg: ModelConfig, x: torch.Tensor,
     return x + p.proj(z)
 
 
+class AudioFrontend(nn.Module):
+    """hubert's feature projection of the frame embeddings and its
+    depthwise convolutional positional embedding (31 taps per channel)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = Dense(cfg.frontend.d_in, d, generator=generator,
+                          dtype=dtype, device=device)
+        w = torch.empty((31, d), dtype=dtype, device=device)
+        self.pos_conv_w = nn.Parameter(w.normal_(generator=generator)
+                                       .mul_(0.02))
+        self.pos_conv_b = nn.Parameter(torch.zeros(d, dtype=dtype,
+                                                   device=device))
+
+
+class VisionFrontend(nn.Module):
+    """pixtral's two-layer projector of the patch embeddings."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.proj1 = Dense(cfg.frontend.d_in, cfg.d_model, **kw)
+        self.proj2 = Dense(cfg.d_model, cfg.d_model, **kw)
+
+
+def _conv_pos_embed(p: AudioFrontend, h: torch.Tensor) -> torch.Tensor:
+    """``h + gelu(conv(h) + b)``: the bidirectional depthwise convolution
+    over the sequence as the reference writes it, the sum of 31 shifted
+    products taken in tap order in h's dtype (each product and each
+    addition rounds there, so a bfloat16 result is the reference's), and
+    the reference's tanh GELU (:func:`gelu_tanh`). ``F.conv1d`` would sum
+    in another order."""
+    w = p.pos_conv_w
+    k, s = w.shape[0], h.shape[1]
+    pad = k // 2
+    padded = F.pad(h, (0, 0, pad, k - 1 - pad))
+    out = padded[:, :s] * w[0]
+    for i in range(1, k):
+        out = out + padded[:, i:i + s] * w[i]
+    return h + gelu_tanh(out + p.pos_conv_b)
+
+
 class Transformer(nn.Module):
-    """A decoder: embedding, ``L`` blocks (attention blocks for the dense
-    family, mamba blocks for ``ssm`` and ``hybrid``), the hybrid's shared
-    block, final norm and LM head (tied to the embedding where the config
-    says so)."""
+    """A model of one family: the token embedding (none for an audio
+    frontend), the frontend's projector where the config has one, ``L``
+    blocks (attention blocks for the dense, encoder and vlm families, mamba
+    blocks for ``ssm`` and ``hybrid``), the hybrid's shared block, final
+    norm and LM head (tied to the embedding where the config says so)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  dtype: torch.dtype, device):
@@ -161,13 +216,19 @@ class Transformer(nn.Module):
                 f"follow in ROADMAP.md, slice 11)")
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device)
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model,
-                               generator=generator, **kw)
+        front = cfg.frontend
+        self.embed = (None if front is not None and front.kind == "audio"
+                      else Embedding(cfg.vocab_size, cfg.d_model,
+                                     generator=generator, **kw))
+        self.frontend = (None if front is None else
+                         (AudioFrontend if front.kind == "audio"
+                          else VisionFrontend)(cfg, generator=generator,
+                                               **kw))
         if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.period:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
                              f"split into super-layers of "
                              f"{cfg.hybrid.period}")
-        kind = Block if cfg.family == "dense" else MambaBlock
+        kind = MambaBlock if cfg.family in ("ssm", "hybrid") else Block
         self.blocks = nn.ModuleList(
             kind(cfg, generator=generator, **kw)
             for _ in range(cfg.n_layers))
@@ -193,20 +254,41 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                            device=device)
 
 
-def forward(model: Transformer, tokens: torch.Tensor, *,
+def forward(model: Transformer, tokens: Optional[torch.Tensor] = None, *,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
             cache: Optional[Cache] = None,
             cache_index: Optional[Index] = None) -> torch.Tensor:
     """Hidden states after the final norm, ``(B, S, d_model)``.
+
+    The input is ``tokens`` (B, S); for an audio frontend (hubert) it is
+    ``frames`` (B, S, d_in) instead, in the model's dtype. A vision model
+    (pixtral) takes optional ``patches`` (B, P, d_in), whose projections
+    replace the embeddings of the first P positions.
 
     With ``cache``, every layer writes its state in place at
     ``cache_index`` (an int, or per-row ``(B,)`` ages under ragged decode):
     attention layers their keys and values, attending to the cache; mamba
     layers their conv and SSD state, from zero state at a cursor of 0.
-    Without, the tokens attend to each other and mamba layers start from
-    zero state."""
+    Without, the positions attend to each other (flash attention on the
+    kernel route) and mamba layers start from zero state."""
     cfg = model.cfg
-    h = embed(model.embed.table, tokens, scale_by_dim=cfg.embed_scale_by_dim)
-    b, s = tokens.shape
+    front = cfg.frontend
+    if front is not None and front.kind == "audio":
+        if frames is None:
+            raise ValueError(f"{cfg.name} takes frames (B, S, "
+                             f"{front.d_in}), not tokens")
+        h = _conv_pos_embed(model.frontend, model.frontend.proj(frames))
+    else:
+        h = embed(model.embed.table, tokens,
+                  scale_by_dim=cfg.embed_scale_by_dim)
+        if front is not None and front.kind == "vision" \
+                and patches is not None:
+            f = model.frontend
+            pp = gelu_tanh(f.proj1(patches))
+            pp = f.proj2(pp).to(h.dtype)
+            h = torch.cat([pp, h[:, pp.shape[1]:]], dim=1)
+    b, s = h.shape[:2]
     offset = cache_index if cache_index is not None else 0
     if isinstance(offset, torch.Tensor) and offset.dim() == 1:
         offset = offset.to(h.device)[:, None]   # ragged decode: per-row ages
@@ -230,9 +312,8 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
         for i, block in enumerate(model.blocks):
             layer_cache = None
             if cache is not None:
-                layer_cache = ((cache["k"][i], cache["v"][i])
-                               if cfg.family == "dense"
-                               else _mamba_layer(cache, i))
+                layer_cache = (_mamba_layer(cache, i) if cfg.family == "ssm"
+                               else (cache["k"][i], cache["v"][i]))
             h = block_apply(block, cfg, h, positions, cache=layer_cache,
                             cache_index=cache_index)
     return model.final_norm(h)
@@ -255,16 +336,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """The family's decode cache, zeros on ``device``, with a write cursor
     ``index``:
 
-    * dense: keys and values ``(L, B, S_max, Hkv, hd)`` in ``dtype``;
+    * dense and vlm: keys and values ``(L, B, S_max, Hkv, hd)`` in
+      ``dtype``;
     * ssm: the mamba state of :func:`init_mamba_cache`, ``(L, B, ...)``
       (float32, as the reference's);
     * hybrid: the shared block's keys and values ``(groups, B, S_max,
       heads, hd)`` in ``dtype`` and the mamba state ``(groups, period, B,
-      ...)``."""
+      ...)``.
+
+    An encoder has no decode step and so no cache: it raises
+    ``ValueError``, the reference's rule (``launch/specs.py``)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"no decode cache for the {cfg.family!r} "
                                   f"family yet (ROADMAP.md, slice 11)")
-    if cfg.family == "dense":
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name}: encoder-only: no decode step")
+    if cfg.family in ("dense", "vlm"):
         return {"index": 0, **init_kv_cache(cfg, batch, max_len, dtype,
                                              device=device)}
     if cfg.family == "ssm":
@@ -326,3 +413,66 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
     logits = logits_from_hidden(model, h[:, -1:])
     cache["index"] = cursor
     return logits[:, 0], cache
+
+
+def _batch_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    return {"tokens": batch.get("tokens"), "frames": batch.get("frames"),
+            "patches": batch.get("patches")}
+
+
+def train_loss(model: Transformer, batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training objective of the reference's ``train_loss``: token-mean
+    cross-entropy of ``batch["labels"]`` (B, S) under the optional
+    ``loss_mask`` (B, S), chunked over the sequence when ``cfg.loss_chunk``
+    divides S (and is shorter), plus the auxiliary loss (zero for every
+    family ported so far). ``batch`` holds the :func:`forward` inputs
+    (``tokens``, ``frames``, ``patches``). Returns ``(loss, {"ce",
+    "aux"})``, float32 scalars.
+
+    On the kernel route (``attention_impl == "kernel"``) it runs under
+    ``torch.no_grad()``: flash attention (K4) has no backward kernel, as
+    the reference's has none; differentiate through
+    ``attention_impl="reference"``."""
+    cfg = model.cfg
+    grad = (torch.no_grad() if cfg.attention_impl == "kernel"
+            else contextlib.nullcontext())
+    with grad:
+        h = forward(model, **_batch_inputs(batch))
+        labels, mask = batch["labels"], batch.get("loss_mask")
+        c = cfg.loss_chunk
+        if c and h.shape[1] % c == 0 and h.shape[1] > c:
+            ce = _chunked_ce(model, h, labels, mask)
+        else:
+            ce = softmax_cross_entropy(logits_from_hidden(model, h), labels,
+                                       mask)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        loss = ce + aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def _chunked_ce(model: Transformer, h: torch.Tensor, labels: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Sequence-chunked cross-entropy: one chunk of ``loss_chunk``
+    positions' (tokens, vocab) logits is live at a time; the chunks' sums
+    add in order, as the reference's scan adds them."""
+    c = model.cfg.loss_chunk
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, h.shape[1], c):
+        logits = logits_from_hidden(model, h[:, i:i + c]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[:, i:i + c, None].long())[..., 0]
+        m = (torch.ones_like(lse) if mask is None
+             else mask[:, i:i + c].float())
+        total = total + ((lse - ll) * m).sum()
+        count = count + m.sum()
+    return total / count.clamp_min(1.0)
+
+
+@torch.no_grad()
+def encode(model: Transformer, batch: Dict[str, torch.Tensor]
+           ) -> torch.Tensor:
+    """Encoder-only forward (hubert): per-frame class logits ``(B, S,
+    vocab)`` from ``batch["frames"]`` (B, S, d_in)."""
+    return logits_from_hidden(model, forward(model, **_batch_inputs(batch)))

@@ -68,9 +68,9 @@ class ServingEngine:
     """Single-replica engine; slots/max_len are Demeter's knobs.
 
     ``model`` is a :class:`~repro_torch.models.Transformer` of a ported
-    family (dense, ssm or hybrid); it is moved to
-    ``device`` (the card unless the caller passes ``device="cpu"``) if it
-    lies elsewhere. The cache's dtype follows the model's parameters.
+    family with a decode step (dense, ssm, hybrid, or vlm on tokens); it
+    is moved to ``device`` (the card unless the caller passes
+    ``device="cpu"``) if it lies elsewhere. The cache's dtype follows the model's parameters.
     """
 
     def __init__(self, cfg: ModelConfig, model, *, n_slots: int,

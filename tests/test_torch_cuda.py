@@ -6,10 +6,11 @@ has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-They hold the fused-tick, RLS, decode-attention and SSD-scan kernels
-against their plain versions, and the fused engine, a short Demeter sweep
-and small serving runs (dense, mamba2, zamba2) on the card against the same
-runs on the CPU.
+They hold the fused-tick, RLS, decode-attention, SSD-scan and
+flash-attention kernels against their plain versions, and the fused
+engine, a short Demeter sweep, small serving runs (dense, mamba2, zamba2),
+hubert's ``encode`` and pixtral's ``train_loss`` on the card against the
+same runs on the CPU.
 ``chip_smoke.py`` does the same at the main paths' full size.
 """
 import copy
@@ -25,13 +26,15 @@ from repro_torch.core.demeter import DemeterHyperParams
 from repro_torch.dsp import (FailuresAt, PeriodicFailures, ScenarioSpec,
                              SweepEngine, make_trace)
 from repro_torch.kernels import decode_attention as attn_mod
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_tick as kmod
 from repro_torch.kernels import ops
 from repro_torch.kernels import rls_update as rls_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
-from repro_torch.kernels.ref import (decode_attention_ref, fused_tick_ref,
+from repro_torch.kernels.ref import (decode_attention_ref,
+                                     flash_attention_ref, fused_tick_ref,
                                      rls_rank1_update_ref, ssd_scan_ref)
-from repro_torch.models import init_params
+from repro_torch.models import encode, init_params, train_loss
 from repro_torch.serving import Request, ServingEngine
 
 LAM, THRESH, DT = 0.995, 3.0, 5.0
@@ -386,3 +389,104 @@ def test_state_space_serving_on_card_matches_cpu(cuda, arch):
         outputs[dev] = [eng.requests[f"r{i}"].output
                         for i in range(len(lens))]
     assert outputs["cuda"] == outputs["cpu"]
+
+
+def _flash_operands(B, Sq, Skv, Hq, Hkv, D, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                            device=device)
+            for shape in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                          (B, Skv, Hkv, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [
+    (2, 256, 256, 4, 2, 64),       # tests/test_kernels.py's shapes
+    (1, 384, 384, 2, 2, 256),
+    (2, 300, 300, 16, 16, 80),     # hubert's heads, a partial tile
+    (1, 520, 520, 32, 8, 128),     # pixtral's group of 4
+    (2, 70, 333, 28, 4, 14),       # qwen2 smoke's head dim, G = 7, Sq < Skv
+    (1, 200, 77, 4, 1, 32)])       # Sq > Skv
+def test_flash_attention_kernel_matches_plain_version(cuda, B, Sq, Skv, Hq,
+                                                      Hkv, D, dtype, tol,
+                                                      causal):
+    """Any lengths, groups and head dims up to 256; causal is top-left
+    aligned. The bf16 bar covers the weights' rounding, which the kernel
+    and the plain version take at different running maxima."""
+    q, k, v = _flash_operands(B, Sq, Skv, Hq, Hkv, D, dtype, cuda)
+    before = flash_mod.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_bad_operands(cuda):
+    q, k, v = _flash_operands(2, 64, 64, 8, 2, 64, torch.float32, cuda)
+    with pytest.raises(TypeError, match="like q"):
+        flash_mod.flash_attention(q, k.bfloat16(), v, causal=True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_mod.flash_attention(q.half(), k.half(), v.half(), causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_mod.flash_attention(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), k, v, causal=True)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        wide = _flash_operands(1, 8, 8, 2, 2, 320, torch.float32, cuda)
+        flash_mod.flash_attention(*wide, causal=True)
+    with pytest.raises(ValueError, match="do not group"):
+        flash_mod.flash_attention(q[:, :, :7].contiguous(), k, v,
+                                  causal=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_mod.flash_attention(q, k.cpu(), v, causal=True)
+    with pytest.raises(ValueError, match="k's shape"):
+        flash_mod.flash_attention(q, k, v[:, :32].contiguous(), causal=True)
+
+
+@pytest.mark.cuda
+def test_flash_attention_has_no_backward(cuda):
+    q, k, v = _flash_operands(1, 16, 16, 2, 2, 32, torch.float32, cuda)
+    q.requires_grad_(True)
+    out = ops.flash_attention(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="training"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+def test_cacheless_forward_on_card_matches_cpu(cuda):
+    """hubert's encode (2 clips of 70 frames) and pixtral's train_loss
+    (with its 8-patch prefix) on the smoke configs in float32: the card,
+    through K4 (one launch per layer), against the CPU, through its plain
+    version."""
+    rng = np.random.default_rng(0)
+    for arch in ("hubert_xlarge", "pixtral_12b"):
+        cfg = smoke_config(arch)
+        cpu_model = init_params(cfg, seed=0, device="cpu",
+                                dtype=torch.float32)
+        card_model = copy.deepcopy(cpu_model).to(cuda)
+        if arch == "hubert_xlarge":
+            batch = {"frames": torch.as_tensor(
+                rng.normal(size=(2, 70, cfg.frontend.d_in)),
+                dtype=torch.float32)}
+            run = encode
+        else:
+            batch = {"tokens": torch.as_tensor(
+                         rng.integers(0, cfg.vocab_size, (2, 70))),
+                     "labels": torch.as_tensor(
+                         rng.integers(0, cfg.vocab_size, (2, 70))),
+                     "patches": torch.as_tensor(
+                         rng.normal(size=(2, 8, cfg.frontend.d_in)),
+                         dtype=torch.float32)}
+            run = lambda m, b: train_loss(m, b)[0]  # noqa: E731
+        before = flash_mod.flash_attention.launches
+        got = run(card_model, {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert flash_mod.flash_attention.launches == before + cfg.n_layers
+        want = run(cpu_model, batch)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))

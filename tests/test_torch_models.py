@@ -106,8 +106,8 @@ def test_configs_carry_across(arch):
 
 
 def test_non_dense_families_are_refused():
-    """The families not ported yet (moe, mla, encoder, vlm) are refused;
-    dense, ssm and hybrid build."""
+    """The families not ported yet (moe, which holds the mla config too)
+    are refused; dense, ssm, hybrid, encoder and vlm build."""
     refused = set()
     for arch in ARCH_IDS:
         cfg = smoke_config(arch)
@@ -118,8 +118,20 @@ def test_non_dense_families_are_refused():
             init_params(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="slice 11"):
             init_cache(cfg, 1, 8, device="cpu")
-    assert refused == {"moe", "encoder", "vlm"}
-    assert PORTED_FAMILIES == ("dense", "ssm", "hybrid")
+    assert refused == {"moe"}
+    assert PORTED_FAMILIES == ("dense", "ssm", "hybrid", "encoder", "vlm")
+
+
+def test_init_cache_refuses_the_encoder():
+    """An encoder has no decode step (the reference's rule); the vlm gets
+    the dense KV cache."""
+    with pytest.raises(ValueError, match="encoder-only: no decode step"):
+        init_cache(smoke_config("hubert_xlarge"), 1, 8, device="cpu")
+    cfg = smoke_config("pixtral_12b")
+    cache = init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    assert set(cache) == {"index", "k", "v"}
+    assert cache["k"].shape == (cfg.n_layers, 2, 8, cfg.n_kv_heads,
+                                cfg.resolved_head_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ def _env():
 @pytest.mark.parametrize("module", ["repro_torch", "repro_torch.dsp",
                                     "repro_torch.core",
                                     "repro_torch.interop",
+                                    "repro_torch.kernels.flash_attention",
                                     "repro_torch.models",
                                     "repro_torch.configs",
                                     "repro_torch.serving",
