@@ -18,7 +18,15 @@ Phases, each of which exits non-zero on failure:
    ``scaled_dot_product_attention``, one layer of the reference's
    prefill_32k encoder cell, the reference tests' shapes in float32 both
    causal and not, gemma's head dim and a ragged length of 300; within
-   2e-5 in float32 and 2e-2 in bf16);
+   2e-5 in float32 and 2e-2 in bf16), ``grouped_matmul`` (K6: deepseek-
+   moe-16b's decode step, 16 tokens x top-6 over 64 experts at blk_m 16,
+   and a 2048-token prompt at blk_m 128, gate/up 2048 -> 1408 and down
+   1408 -> 2048 in bf16 beside ``torch._grouped_mm`` and the capacity
+   buffer's einsums, each also at the other blk_m, and the reference
+   tests' shapes in float32; within 1e-4 of the plain version's scale in
+   float32 and 2e-2 in bf16) and ``fused_rmsnorm`` (K7: the reference
+   tests' shapes and 16 x 4096 rows of 2048 beside ``F.rms_norm``; 1e-5 in
+   float32, one bf16 ulp of each element in bf16);
 4. baseline path: ``SweepEngine``/``run_sweep`` over a baseline-controller
    grid (traces ysb and tsw x static/reactive/ds2 x seeds 0-47 = 288
    scenarios, the paper's 18 h at dt = 5 s, a failure every 45 minutes) on
@@ -79,14 +87,31 @@ Phases, each of which exits non-zero on failure:
     attention route gives the loss within 1e-2;
 18. pixtral, card against CPU: 2 layers at full width, float32, TF32 off,
     1 x 256 tokens with 64 patches; the loss within 1e-5 and the logits
-    within 1e-4 of their scale.
+    within 1e-4 of their scale;
+19. the MoE serving path: deepseek-moe-16b at full width in bfloat16 (28
+    layers: layer 0 a dense FFN, then 64 routed experts of 1408, top-6,
+    and 2 shared), phase 8's engine and traffic; every request completes,
+    every logit is finite, the second wave reuses slots, K6 launches 3 x
+    27 times per prefill and decode step and K3 28 times per decode step;
+    two prompts' last prefill logits on the K6 route against the capacity
+    buffer's einsums (``MOE_ROUTE_BAR``);
+20. deepseek-moe, card against CPU: 2 layers (the dense one and an MoE
+    one) at full width, float32, TF32 off, 4 requests, judged as phase 9;
+21. deepseek-v2-lite-16b at full width in bfloat16 (27 layers of
+    multi-head latent attention, a 512-wide latent cache), phase 19's
+    traffic; K6 launches 3 x 26 times per call, and one absorbed decode
+    step equals the naive path from the same cache within 2e-2;
+22. deepseek-v2-lite, card against CPU: as phase 20.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
 ``kernels`` line reports each kernel's launches on its own main path (K1
 and K2 on the Demeter path, K3 on the qwen2-7b serving path, K5 on the
-mamba2-1.3b one, K4 on the hubert-xlarge encoder path) beside its times
-at that path's shapes.
+mamba2-1.3b one, K4 on the hubert-xlarge encoder path, K6 on the
+deepseek-moe-16b one) beside its times at that path's shapes; K7 has no
+model path (no model of the reference calls it): its launches are those
+counted on the deepseek-moe-16b run, and the script fails unless they
+are 0.
 
     python3 chip_smoke.py                     # from the root of a checkout
 """
@@ -195,6 +220,36 @@ FLASH_EXTRA_SHAPES = ((1, 512, 16, 16, 256, True), (2, 300, 16, 16, 80, False),
 #: one layer of the reference's prefill_32k cell for the encoder
 #: (launch/dryrun.py) at batch 1: 32 768 frames, hubert's heads
 PREFILL_32K = 32_768
+#: The MoE serving paths, with phase 8's engine and traffic, at full width
+#: in bfloat16: deepseek-moe-16b (28 layers of 16 heads of 128; layer 0 a
+#: dense FFN of 10 944, the rest 64 routed experts of 1 408, top-6, and 2
+#: shared) and deepseek-v2-lite-16b (27 layers of multi-head latent
+#: attention, a 512-wide latent and a 64-wide RoPE key a token)
+MOE_ARCH, MLA_ARCH = "deepseek_moe_16b", "deepseek_v2_lite_16b"
+CARD_VS_CPU.update({MOE_ARCH: (2, 4, (16, 32), 8),
+                    MLA_ARCH: (2, 4, (16, 32), 8)})
+#: K6's bars against its plain version, relative to the output's scale:
+#: float32 sums in another order; in bf16 one rounding of each either way
+GMM_BARS = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the reference tests' K6 shapes (tests/test_kernels.py::TestGroupedMatmul:
+#: tokens, E, K, N), one expert a token, blk_m 128, float32
+GMM_TEST_SHAPES = ((300, 4, 128, 256), (1000, 8, 256, 128),
+                   (64, 2, 128, 128))
+#: K7's shapes: the reference tests' (tests/test_kernels.py::
+#: TestFusedRMSNorm), and 16 x 4096 rows of deepseek's 2048 (timed)
+RMSNORM_SHAPES = ((4, 37, 512), (2, 256, 128), (7, 64))
+RMSNORM_MAIN = (SERVE_SLOTS * SERVE_MAX_LEN, 2048)
+#: The K6 route against the capacity buffer's einsums at full depth in
+#: bf16: last prefill logits within 2e-2 of their scale, the bf16 bar of
+#: phase 3. Both routes round each product once from float32 sums; on the
+#: H100 the two prompts' logits came out equal on both MoE models.
+MOE_ROUTE_BAR = 2e-2
+#: one absorbed MLA decode step against the naive path from the same
+#: cache, bf16 (the two round at different places): 2e-2 of the scale
+MLA_ABSORBED_BAR = 2e-2
+#: kernels that no model of the reference calls: every serving path counts
+#: their launches and must count none
+NO_MODEL_PATH = ("fused_rmsnorm",)
 
 
 def fail(msg: str) -> NoReturn:
@@ -559,6 +614,175 @@ def check_flash_attention(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype,
                 "library_ms": device_ms(library, n=n, warmup=3, host_n=n),
                 "dispatch_ms": host_ms(call, n=n),
                 **bound(n_bytes, n_ops, rate)})
+    return out
+
+
+def gmm_operands(n_tok: int, top_k: int, E: int, K: int, N: int, blk: int,
+                 dtype, seed: int = 0):
+    """The model path's grouped-matmul operands on the card: ``n_tok``
+    tokens each routed to ``top_k`` distinct experts of ``E`` (uniformly,
+    as random router weights route them), every assignment kept, sorted
+    into the statically sized buffer of ``sort_assignments``; the tokens
+    and the expert weights ``(E, K, N)`` drawn on the card from N(0, 1)
+    and N(0, 1/K). Returns ``(lhs, rhs, sort, expert ids, tokens)``."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import sort_assignments
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    eids = torch.rand((n_tok, E), generator=g, device="cuda"
+                      ).argsort(dim=1)[:, :top_k]
+    flat_e = eids.T.reshape(-1)
+    keep = torch.ones_like(flat_e, dtype=torch.bool)
+    srt = sort_assignments(flat_e, keep, E, blk)
+    x = torch.randn((n_tok, K), generator=g, device="cuda").to(dtype)
+    lhs = torch.zeros((srt.rows + 1, K), dtype=dtype, device="cuda")
+    lhs[srt.dest] = x.repeat(top_k, 1)
+    rhs = (torch.randn((E, K, N), generator=g, device="cuda")
+           / math.sqrt(K)).to(dtype)
+    return lhs[:srt.rows], rhs, srt, flat_e, x
+
+
+def grouped_mm_library(x, flat_e, rhs, top_k: int):
+    """``torch._grouped_mm`` (bf16, group offsets) on the same products,
+    the assignments packed by expert without padding: the library call of
+    the kernel table, timed only. None where this torch has no such call
+    or refuses these operands (the reason is printed)."""
+    import torch
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or x.dtype != torch.bfloat16:
+        print("kernel grouped_matmul: no torch._grouped_mm for these "
+              "operands", flush=True)
+        return None
+    order = torch.sort(flat_e, stable=True).indices
+    a = x.repeat(top_k, 1)[order].contiguous()
+    offs = torch.cumsum(torch.bincount(flat_e, minlength=rhs.shape[0]),
+                        0).to(torch.int32)
+    try:
+        fn(a, rhs, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        print(f"kernel grouped_matmul: torch._grouped_mm refused "
+              f"({str(e).splitlines()[0][:160]})", flush=True)
+        return None
+    return lambda: fn(a, rhs, offs=offs)  # noqa: E731
+
+
+def check_grouped_matmul(n_tok: int, top_k: int, E: int, K: int, N: int,
+                         blk: int, dtype, timed: bool = False) -> dict:
+    """The CUDA grouped matmul against its plain version at one of the
+    path's shapes: the largest difference relative to the plain version's
+    scale within ``GMM_BARS`` (float32 sums in another order; in bf16 one
+    rounding of each either way); tiles past the last group zero; its
+    device time. With ``timed`` also the plain version's, the bound (the
+    weights of every expert that owns a tile and each assignment's row of
+    lhs and of the output, each moved once, over HBM; or 2 K N operations
+    per assignment over the bf16 rate, the larger: padding rows are the
+    kernel's layout, not the function's work), ``torch._grouped_mm`` (the
+    library call) and the reference route's three batched products over
+    its (E, C, d) capacity buffer at these shapes (``einsum_ms``: gate, up
+    and down; timed only)."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as kmod
+    from repro_torch.kernels.ref import grouped_matmul_ref
+    lhs, rhs, srt, flat_e, x = gmm_operands(n_tok, top_k, E, K, N, blk,
+                                            dtype)
+    te = srt.tile_expert
+    got = kmod.grouped_matmul(lhs, rhs, te, blk_m=blk)
+    torch.cuda.synchronize()
+    want = grouped_matmul_ref(lhs, rhs, te, blk)
+    name = str(dtype).split(".")[-1]
+    label = (f"grouped_matmul tokens={n_tok} top_k={top_k} E={E} K={K} "
+             f"N={N} blk_m={blk} {name}")
+    if not bool(got.isfinite().all()):
+        fail(f"{label}: the kernel's output is not finite")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    rel = err / float(want.float().abs().max())
+    if not rel <= GMM_BARS[name]:
+        fail(f"{label}: differs from the plain version by {rel} of its "
+             f"scale (bar {GMM_BARS[name]})")
+    if got.view(-1, blk, N)[te < 0].any():
+        fail(f"{label}: a tile past the last group is not zero")
+    out = {"tokens": n_tok, "top_k": top_k, "E": E, "K": K, "N": N,
+           "blk_m": blk, "rows": srt.rows, "dtype": name,
+           "max_abs_err": err, "max_rel_err": rel}
+    call = lambda: kmod.grouped_matmul(lhs, rhs, te, blk_m=blk)  # noqa: E731
+    out["ms"] = device_ms(call, n=30, warmup=3)
+    if not timed:
+        return out
+    item = lhs.element_size()
+    used = int((te >= 0).sum())
+    experts = int(torch.unique(te[te >= 0]).numel())
+    n_bytes = (experts * K * N + flat_e.numel() * (K + N)) * item
+    n_ops = 2 * flat_e.numel() * K * N
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    library = grouped_mm_library(x, flat_e, rhs, top_k)
+    # the reference route: the capacity buffer's gate, up and down products
+    cap = int(torch.bincount(flat_e, minlength=E).max())
+    buf = torch.randn(E, cap, K, device="cuda").to(dtype)
+    w_down = torch.randn(E, N, K, device="cuda").to(dtype)
+
+    def einsums():
+        g = torch.einsum("ecd,edf->ecf", buf, rhs)
+        u = torch.einsum("ecd,edf->ecf", buf, rhs)
+        return torch.einsum("ecf,efd->ecd", g * u, w_down)
+    plain = lambda: grouped_matmul_ref(lhs, rhs, te, blk)  # noqa: E731
+    out.update({"assignments": flat_e.numel(), "used_tiles": used,
+                "experts_read": experts, "bytes": n_bytes, "flops": n_ops,
+                "plain_ms": device_ms(plain, n=5, warmup=1, host_n=3),
+                "library_ms": (device_ms(library, n=30, warmup=3)
+                               if library is not None else None),
+                "einsum_ms": device_ms(einsums, n=10, warmup=2, host_n=10),
+                "dispatch_ms": host_ms(call, n=30),
+                **bound(n_bytes, n_ops, rate)})
+    return out
+
+
+def check_fused_rmsnorm(shape, dtype, timed: bool = False) -> dict:
+    """The CUDA fused RMSNorm against its plain version: y and s within
+    1e-5 (atol and rtol) in float32 and one bf16 ulp of each element in
+    bf16; its device time. With ``timed`` also the plain version's, the
+    bound (x and res read, y and s written, once each, over HBM) and
+    ``F.rms_norm(x + res, (d,), 1 + scale, eps)`` (the library yardstick,
+    timed only; it does not return the sum)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as kmod
+    from repro_torch.kernels.ref import fused_rmsnorm_ref
+    g = torch.Generator(device="cuda").manual_seed(shape[-1])
+    x, res = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    scale = (0.1 * torch.randn(shape[-1:], generator=g, device="cuda")
+             ).to(dtype)
+    got = kmod.fused_rmsnorm(x, res, scale)
+    torch.cuda.synchronize()
+    want = fused_rmsnorm_ref(x, res, scale)
+    name = str(dtype).split(".")[-1]
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 0.0)
+    err = share = 0.0
+    for a, b in zip(got, want):
+        d = (a.float() - b.float()).abs()
+        err = max(err, float(d.max()))
+        share = max(share, float((d / (atol + rtol * b.float().abs())
+                                  ).nan_to_num(0.0).max()))
+    if not share <= 1.0:
+        fail(f"fused_rmsnorm {shape} {name}: differs from the plain version "
+             f"by {err} (bar {atol} + {rtol}|plain|)")
+    out = {"shape": list(shape), "dtype": name, "max_abs_err": err,
+           "bar_share": share}
+    call = lambda: kmod.fused_rmsnorm(x, res, scale)  # noqa: E731
+    out["ms"] = device_ms(call)
+    if not timed:
+        return out
+    item = x.element_size()
+    n_bytes = 4 * x.numel() * item + scale.numel() * item
+    d = shape[-1]
+    w = 1.0 + scale
+    library = lambda: F.rms_norm(x + res, (d,), w, 1e-6)  # noqa: E731
+    plain = lambda: fused_rmsnorm_ref(x, res, scale)  # noqa: E731
+    out.update({"bytes": n_bytes, "plain_ms": device_ms(plain),
+                "library_ms": device_ms(library),
+                "dispatch_ms": host_ms(call),
+                **bound(n_bytes, 6 * x.numel(), FP32_OPS_PER_S)})
     return out
 
 
@@ -1125,26 +1349,40 @@ def decode_profile(eng, prompts, warmup: int = 3, steps: int = 5) -> dict:
 
 def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     """Each kernel's launches on a serving run: K3 once per layer and decode
-    step of a dense model; K5 once per mamba layer and prefill of more than
-    one token (the ssm and hybrid families); the hybrid's shared block uses
-    the plain attention, as the reference's does."""
-    if cfg.family == "dense":
-        return {"decode_attention": decode_steps * cfg.n_layers,
-                "ssd_scan": 0}
-    return {"decode_attention": 0, "ssd_scan": prefills * cfg.n_layers}
+    step of a model with per-head KV (dense, and moe without MLA); K5 once
+    per mamba layer and prefill of more than one token (the ssm and hybrid
+    families; the hybrid's shared block uses the plain attention, as the
+    reference's does); K6 three times (gate, up, down) per MoE layer and
+    model call, prefill or decode step; K7 never (no model calls it)."""
+    kv_heads = cfg.family == "dense" or (cfg.family == "moe"
+                                         and cfg.mla is None)
+    moe_layers = (cfg.n_layers - cfg.moe.first_dense_layers
+                  if cfg.family == "moe" else 0)
+    return {"decode_attention": decode_steps * cfg.n_layers if kv_heads
+            else 0,
+            "ssd_scan": (prefills * cfg.n_layers
+                         if cfg.family in ("ssm", "hybrid") else 0),
+            "grouped_matmul": 3 * moe_layers * (prefills + decode_steps),
+            "fused_rmsnorm": 0}
 
 
 def serving_main_path(device: str = "cuda", arch: str = SERVE_ARCH,
                       n_requests: int = SERVE_REQUESTS,
                       new_tokens: int = SERVE_NEW_TOKENS) -> dict:
     """A serving path at full width on ``device`` (phase 8: qwen2-7b;
-    phases 11 and 13: mamba2-1.3b and zamba2-2.7b): ``n_requests`` prompts
+    phases 11 and 13: mamba2-1.3b and zamba2-2.7b; phases 19 and 21:
+    deepseek-moe-16b and deepseek-v2-lite-16b): ``n_requests`` prompts
     of 256-2048 tokens through 16 slots, so a second wave reuses slots;
-    returns the kernels' launches and the path's numbers."""
+    returns the kernels' launches and the path's numbers. On the card an
+    MoE model's routes are compared (:func:`moe_route_check`), and an MLA
+    model's absorbed decode with its naive path
+    (:func:`mla_absorbed_check`)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import grouped_matmul as k6
+    from repro_torch.kernels import rmsnorm as k7
     from repro_torch.kernels import ssd_scan as k5
     from repro_torch.models import init_params, logits_from_hidden
     from repro_torch.serving import ServingEngine
@@ -1173,13 +1411,17 @@ def serving_main_path(device: str = "cuda", arch: str = SERVE_ARCH,
     timers.wrap(eng, "step", "decode step")
     k3.decode_attention.launches = 0
     k5.ssd_scan.launches = 0
+    k6.grouped_matmul.launches = 0
+    k7.fused_rmsnorm.launches = 0
     try:
         wall, _ = serve(eng, prompts, new_tokens)
     finally:
         timers.restore()
         del eng._prefill_into_slot
     launches = {"decode_attention": k3.decode_attention.launches,
-                "ssd_scan": k5.ssd_scan.launches}
+                "ssd_scan": k5.ssd_scan.launches,
+                "grouped_matmul": k6.grouped_matmul.launches,
+                "fused_rmsnorm": k7.fused_rmsnorm.launches}
     steps = eng.metrics.decode_steps
     reused = len(slots) - len(set(slots))
     want = expected_launches(cfg, len(slots), steps)
@@ -1196,6 +1438,11 @@ def serving_main_path(device: str = "cuda", arch: str = SERVE_ARCH,
                     dtype=torch.bfloat16)
     lm_head_ms = (device_ms(lambda: logits_from_hidden(model, h))
                   if on_card else None)
+    extra = {}
+    if on_card and cfg.family == "moe":
+        extra["route_check"] = moe_route_check(model, cfg, prompts[:2])
+    if on_card and cfg.mla is not None:
+        extra["absorbed_check"] = mla_absorbed_check(model, cfg, eng.cache)
     profile = decode_profile(eng, prompts[:SERVE_SLOTS]) if on_card else None
     out = {"arch": arch, "params": n_params, "init_s": init_s,
            "cache_gb": cache_gb, "requests": n_requests,
@@ -1210,9 +1457,78 @@ def serving_main_path(device: str = "cuda", arch: str = SERVE_ARCH,
            "lm_head_ms": lm_head_ms, "decode_profile": profile,
            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                               if on_card else None),
-           "launches": launches}
+           "launches": launches, **extra}
     print(f"serving main path {arch} " + json.dumps(out), flush=True)
     return out
+
+
+def moe_route_check(model, cfg, prompts) -> dict:
+    """Phases 19 and 21: each prompt's last prefill logits on the kernel
+    route (K6) against the reference route (the capacity buffer's einsums),
+    the same weights, on the card: within ``MOE_ROUTE_BAR`` of their scale,
+    and the greedy token equal or, where it differs, the top-2 gap (on the
+    reference route) below the largest logit difference."""
+    import dataclasses
+    import torch
+    from repro_torch.models import init_cache, prefill
+    param = next(model.parameters())
+    rels, same = [], []
+    try:
+        for pr in prompts:
+            runs = []
+            for impl in ("kernel", "reference"):
+                model.cfg = dataclasses.replace(cfg, attention_impl=impl)
+                cache = init_cache(cfg, 1, len(pr), dtype=param.dtype,
+                                   device=param.device)
+                logits, _ = prefill(model, torch.as_tensor(
+                    pr, device=param.device)[None], cache)
+                runs.append(logits[0].float().cpu())
+                del cache
+            a, b = runs
+            rels.append(largest_rel(a, b))
+            same.append(int(a.argmax()) == int(b.argmax()))
+            top2 = b.topk(2).values
+            if not (same[-1] or float(top2[0] - top2[1])
+                    < float((a - b).abs().max())):
+                fail(f"{cfg.name}: the K6 and einsum routes pick tokens "
+                     f"{int(a.argmax())} and {int(b.argmax())} beyond "
+                     f"rounding")
+    finally:
+        model.cfg = cfg
+    if not max(rels) <= MOE_ROUTE_BAR:
+        fail(f"{cfg.name}: the K6 route's prefill logits differ from the "
+             f"einsum route's by {max(rels)} of their scale (bar "
+             f"{MOE_ROUTE_BAR})")
+    return {"prompt_tokens": [len(p) for p in prompts],
+            "max_rel_logit_diff": rels, "same_greedy_token": same}
+
+
+def mla_absorbed_check(model, cfg, cache) -> dict:
+    """Phase 21: one decode step of an MLA layer (layer 1) in latent space
+    against the naive path, from the same cache (the engine's, as its
+    last requests left it) at random per-row ages, bf16: within
+    ``MLA_ABSORBED_BAR`` of the output's scale."""
+    import torch
+    from repro_torch.models import mla
+    layer = 1
+    cc, cr = cache["c_kv"][layer], cache["k_rope"][layer]
+    g = torch.Generator(device=cc.device).manual_seed(5)
+    b = cc.shape[0]
+    x = torch.randn(b, 1, cfg.d_model, generator=g, device=cc.device
+                    ).to(cc.dtype)
+    ages = torch.randint(1, cc.shape[1], (b,), generator=g,
+                         device=cc.device)
+    p = model.blocks[layer].mixer
+    with torch.no_grad():
+        q_nope, q_rope = mla._queries(p, cfg, x, ages[:, None])
+        got = mla._absorbed_decode(p, cfg, q_nope, q_rope, cc, cr, ages + 1)
+        want = mla._naive(p, cfg, q_nope, q_rope, cc, cr,
+                          q_positions=ages[:, None], kv_valid_len=ages + 1)
+    rel = largest_rel(got.float(), want.float())
+    if not (bool(got.isfinite().all()) and rel <= MLA_ABSORBED_BAR):
+        fail(f"{cfg.name}: the absorbed decode differs from the naive path "
+             f"by {rel} of its scale (bar {MLA_ABSORBED_BAR})")
+    return {"rows": b, "max_rel_diff": rel}
 
 
 def first_token_difference(a, b):
@@ -1549,6 +1865,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.models.moe import block_m
 
     # The port's host-side work (scalar GP fits, posteriors on the host, the
     # CPU legs of the comparisons) is thousands of tiny tensor operations,
@@ -1570,7 +1887,8 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     libs = build.build_all(["fused_tick", "rls_update", "decode_attention",
-                            "ssd_scan", "flash_attention"])
+                            "ssd_scan", "flash_attention", "grouped_matmul",
+                            "rmsnorm"])
     for lib_name in libs:
         build.load(lib_name)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
@@ -1663,6 +1981,43 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             r = check_flash_attention(*shape, dtype, causal)
             print("kernel flash_attention " + json.dumps(r), flush=True)
+    # K6 at deepseek-moe-16b's shapes: a decode step's 16 tokens and a
+    # 2048-token prompt, top-6 over 64 experts, each at the path's blk_m
+    # (timed beside the plain version, torch._grouped_mm and the einsums)
+    # and at the other blk_m (its time only); gate/up 2048 -> 1408, down
+    # 1408 -> 2048; then the reference tests' shapes in float32
+    moe_cfg = get_config(MOE_ARCH)
+    e = moe_cfg.moe
+    gmm_rows = {}
+    for key, n_tok in (("decode", SERVE_SLOTS), ("prefill", SERVE_PROMPTS[1])):
+        blk = block_m(n_tok * e.top_k, e.n_routed)
+        for K, N in ((moe_cfg.d_model, e.d_expert),
+                     (e.d_expert, moe_cfg.d_model)):
+            r = check_grouped_matmul(n_tok, e.top_k, e.n_routed, K, N, blk,
+                                     torch.bfloat16, timed=True)
+            gmm_rows[(key, K)] = r
+            print(f"kernel grouped_matmul {key} " + json.dumps(r), flush=True)
+            r = check_grouped_matmul(n_tok, e.top_k, e.n_routed, K, N,
+                                     64 if blk == 128 else 128,
+                                     torch.bfloat16)
+            print(f"kernel grouped_matmul {key} other blk_m "
+                  + json.dumps(r), flush=True)
+    r = check_grouped_matmul(SERVE_SLOTS, e.top_k, e.n_routed,
+                             moe_cfg.d_model, e.d_expert, 16, torch.float32)
+    print("kernel grouped_matmul decode " + json.dumps(r), flush=True)
+    for n_tok, n_exp, K, N in GMM_TEST_SHAPES:
+        r = check_grouped_matmul(n_tok, 1, n_exp, K, N, 128, torch.float32)
+        print("kernel grouped_matmul " + json.dumps(r), flush=True)
+    # K7 at the reference tests' shapes, and 16 x 4096 rows of 2048 (timed)
+    rms_rows = {}
+    for shape in RMSNORM_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = check_fused_rmsnorm(shape, dtype)
+            print("kernel fused_rmsnorm " + json.dumps(r), flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        rms_rows[str(dtype).split(".")[-1]] = r = check_fused_rmsnorm(
+            RMSNORM_MAIN, dtype, timed=True)
+        print("kernel fused_rmsnorm " + json.dumps(r), flush=True)
     print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the baseline path ------------------------------------------------
@@ -1751,7 +2106,31 @@ def main() -> int:
 
     # -- 18. pixtral, card against CPU --------------------------------------
     vlm_card_vs_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 19. the MoE serving path (deepseek-moe-16b) ------------------------
+    moe_path = serving_main_path(arch=MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 19 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 20. deepseek-moe, card against CPU ---------------------------------
+    serving_card_vs_cpu(arch=MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 21. the MLA serving path (deepseek-v2-lite-16b) --------------------
+    mla_path = serving_main_path(arch=MLA_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 21 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 22. deepseek-v2-lite, card against CPU -----------------------------
+    serving_card_vs_cpu(arch=MLA_ARCH)
+    print(f"phase 22 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- summary lines: each kernel's launches on its main path and its
     # times at that path's shapes
@@ -1764,7 +2143,11 @@ def main() -> int:
           f"launches {serve_path['launches']}; {SSM_ARCH} launches "
           f"{ssm_path['launches']}; {HYBRID_ARCH} launches "
           f"{hybrid_path['launches']}; {ENCODER_ARCH} launches "
-          f"{encoder_path['launches']}")
+          f"{encoder_path['launches']}; {MOE_ARCH} launches "
+          f"{moe_path['launches']}; {MLA_ARCH} launches "
+          f"{mla_path['launches']}; fused_rmsnorm (K7) has no model path")
+    gmm = gmm_rows[("decode", moe_cfg.d_model)]
+    rms = rms_rows["bfloat16"]
     kernels = [{
         "name": "fused_tick", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_tick.cu",
@@ -1811,13 +2194,35 @@ def main() -> int:
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+    }, {
+        "name": "grouped_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/kernels/grouped_matmul.py:44",
+        "launches": moe_path["launches"]["grouped_matmul"],
+        "max_abs_err": max(r["max_abs_err"] for r in gmm_rows.values()),
+        "ms": gmm["ms"], "plain_ms": gmm["plain_ms"],
+        "bound_ms": gmm["bound_ms"], "bound_by": gmm["bound_by"],
+        "library_ms": gmm["library_ms"],
+    }, {
+        "name": "fused_rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:32",
+        "launches": moe_path["launches"]["fused_rmsnorm"],
+        "max_abs_err": rms["max_abs_err"],
+        "ms": rms["ms"], "plain_ms": rms["plain_ms"],
+        "bound_ms": rms["bound_ms"], "bound_by": rms["bound_by"],
+        "library_ms": rms["library_ms"],
     }]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err") + (
                 ("library_ms",) if k["library_ms"] is not None else ()):
             if not math.isfinite(k[key]):
                 fail(f"{k['name']}: {key} is not finite")
-        if not k["launches"] > 0:
+        if k["name"] in NO_MODEL_PATH:
+            if k["launches"] != 0:
+                fail(f"{k['name']} launched {k['launches']} times on the "
+                     f"{MOE_ARCH} path, which calls it nowhere")
+        elif not k["launches"] > 0:
             fail(f"{k['name']} was not launched on the main path")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())

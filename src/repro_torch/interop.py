@@ -135,10 +135,14 @@ def model_config_from_dict(d: Mapping[str, Any]) -> model_config.ModelConfig:
     return model_config.ModelConfig(**d)
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = ""
+def _flatten(tree: Union[Mapping[str, Any], list, tuple], prefix: str = ""
              ) -> Iterator[Tuple[str, np.ndarray]]:
-    for key, value in tree.items():
-        if isinstance(value, Mapping):
+    """Dotted names and NumPy leaves of a tree of dicts and lists (a list's
+    items are named by their index: the reference's ``prefix`` blocks)."""
+    items = (tree.items() if isinstance(tree, Mapping)
+             else enumerate(tree))
+    for key, value in items:
+        if isinstance(value, (Mapping, list, tuple)):
             yield from _flatten(value, f"{prefix}{key}.")
         else:
             yield f"{prefix}{key}", np.asarray(value)
@@ -180,7 +184,9 @@ def model_params_from_reference(cfg: model_config.ModelConfig,
     layer stack's leaves are unstacked into the port's per-layer modules:
     ``(L, ...)`` for the dense, ssm, encoder and vlm families,
     ``(groups, period, ...)`` for the hybrid, whose ``shared.*`` leaves go
-    to the shared block. The other leaves keep their names: a frontend's
+    to the shared block, and ``(L - first_dense_layers, ...)`` for the moe
+    family, whose list of dense first blocks (``prefix``) gives the port's
+    first ``first_dense_layers`` blocks. The other leaves keep their names: a frontend's
     (``frontend.proj``, ``pos_conv_w``, ``pos_conv_b`` for audio;
     ``frontend.proj1``, ``proj2`` for vision), and hubert's tree has no
     ``embed`` and its own ``lm_head``, as the port's model. The
@@ -190,10 +196,14 @@ def model_params_from_reference(cfg: model_config.ModelConfig,
     flat = dict(_flatten(params))
     model = init_params(cfg, device=device,
                         dtype=_to_torch(flat["final_norm.scale"]).dtype)
+    n_prefix = cfg.moe.first_dense_layers if cfg.moe is not None else 0
     lead = ((cfg.n_layers // cfg.hybrid.period, cfg.hybrid.period)
-            if cfg.family == "hybrid" else (cfg.n_layers,))
+            if cfg.family == "hybrid" else (cfg.n_layers - n_prefix,))
     src = {}
     for name, a in flat.items():
+        if name.startswith("prefix."):
+            src[f"blocks.{name[len('prefix.'):]}"] = a
+            continue
         if not name.startswith("stack."):
             src[name] = a
             continue
@@ -201,6 +211,6 @@ def model_params_from_reference(cfg: model_config.ModelConfig,
             raise ValueError(f"{name}: layers stacked as "
                              f"{a.shape[:len(lead)]}, the config has {lead}")
         for i, idx in enumerate(np.ndindex(*lead)):
-            src[f"blocks.{i}.{name[len('stack.'):]}"] = a[idx]
+            src[f"blocks.{n_prefix + i}.{name[len('stack.'):]}"] = a[idx]
     load_reference_params(model, src)
     return model

@@ -49,6 +49,12 @@ SIGNATURES = {
     "ssd_scan": ("ssd_scan_launch",
                  [_C] * 7 + [ctypes.c_int64, ctypes.c_int64]
                  + [ctypes.c_int] * 6 + [_C]),
+    "grouped_matmul": ("grouped_matmul_launch",
+                       [_C] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 4
+                       + [_C]),
+    "rmsnorm": ("fused_rmsnorm_launch",
+                [_C] * 5 + [ctypes.c_int64, ctypes.c_int, _D, ctypes.c_int,
+                            ctypes.c_int, _C]),
 }
 
 #: Wall spent building (where needed) and loading each library in this

@@ -12,9 +12,12 @@ import torch
 from . import decode_attention as _decode_attention
 from . import flash_attention as _flash_attention
 from . import fused_tick as _fused_tick
+from . import grouped_matmul as _grouped_matmul
 from . import rls_update as _rls_update
+from . import rmsnorm as _rmsnorm
 from . import ssd_scan as _ssd_scan
-from .ref import (decode_attention_ref, flash_attention_ref, fused_tick_ref,
+from .ref import (decode_attention_ref, flash_attention_ref,
+                  fused_rmsnorm_ref, fused_tick_ref, grouped_matmul_ref,
                   rls_rank1_update_ref, ssd_scan_ref)
 
 
@@ -83,3 +86,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         return _ssd_scan.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
     raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got a tensor on "
                      f"{x.device}")
+
+
+def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
+                   tile_expert: torch.Tensor, *, blk_m: int):
+    """Expert-grouped matmul over rows sorted by expert; see
+    :func:`repro_torch.kernels.ref.grouped_matmul_ref` for the function and
+    the shapes."""
+    if lhs.device.type == "cpu":
+        return grouped_matmul_ref(lhs, rhs, tile_expert, blk_m)
+    if lhs.device.type == "cuda":
+        return _grouped_matmul.grouped_matmul(lhs, rhs, tile_expert,
+                                              blk_m=blk_m)
+    raise ValueError(f"grouped_matmul takes CPU or CUDA tensors, got a "
+                     f"tensor on {lhs.device}")
+
+
+def fused_rmsnorm(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor,
+                  *, eps: float = 1e-6):
+    """Fused residual add and RMSNorm; see
+    :func:`repro_torch.kernels.ref.fused_rmsnorm_ref` for the function and
+    the shapes."""
+    if x.device.type == "cpu":
+        return fused_rmsnorm_ref(x, res, scale, eps)
+    if x.device.type == "cuda":
+        return _rmsnorm.fused_rmsnorm(x, res, scale, eps=eps)
+    raise ValueError(f"fused_rmsnorm takes CPU or CUDA tensors, got a "
+                     f"tensor on {x.device}")

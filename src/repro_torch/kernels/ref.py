@@ -163,3 +163,41 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(bsz, seq, h, p)
     return y.to(x.dtype), state
+
+
+def grouped_matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor,
+                       tile_expert: torch.Tensor, blk_m: int
+                       ) -> torch.Tensor:
+    """Expert-grouped matmul: ``out[i] = lhs[i] @ rhs[tile_expert[i //
+    blk_m]]``, a loop over the M-tiles as the reference's oracle
+    ``repro/kernels/ref.py::grouped_matmul_ref``, each product in float32
+    and rounded once to lhs's dtype. A tile whose expert id is negative
+    (past the last group of a statically sized buffer) is zeros.
+
+    lhs: ``(M, K)`` with ``M = len(tile_expert) * blk_m``; rhs: ``(E, K,
+    N)``; tile_expert: ``(M / blk_m,)`` integers. Returns ``(M, N)``.
+    """
+    m = lhs.shape[0]
+    if m != tile_expert.numel() * blk_m:
+        raise ValueError(f"lhs has {m} rows, tile_expert "
+                         f"{tile_expert.numel()} tiles of {blk_m}")
+    out = torch.zeros((m, rhs.shape[2]), dtype=lhs.dtype, device=lhs.device)
+    for t, e in enumerate(tile_expert.tolist()):
+        if e >= 0:
+            rows = slice(t * blk_m, (t + 1) * blk_m)
+            out[rows] = (lhs[rows].float() @ rhs[e].float()).to(lhs.dtype)
+    return out
+
+
+def fused_rmsnorm_ref(x: torch.Tensor, res: torch.Tensor,
+                      scale: torch.Tensor, eps: float = 1e-6
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused residual add and RMSNorm, the reference's oracle
+    ``repro/kernels/ref.py::fused_rmsnorm_ref``: ``s = x + res`` in
+    float32, ``y = s · rsqrt(mean(s²) + eps) · (1 + scale)``; returns
+    ``(y, s)``, both rounded once to x's dtype. x, res: ``(..., d)``;
+    scale: ``(d,)``."""
+    s = x.float() + res.float()
+    var = s.square().mean(-1, keepdim=True)
+    y = s * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return y.to(x.dtype), s.to(x.dtype)

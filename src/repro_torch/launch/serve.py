@@ -110,8 +110,10 @@ def run_autoscaled(cfg, args, *, device="cuda",
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", type=arch_id, required=True,
-                    help="an id of repro_torch.configs.ARCH_IDS or an alias "
-                         "(mamba2-1.3b, zamba2-2.7b)")
+                    help="an id of repro_torch.configs.ARCH_IDS (any "
+                         "that decodes: deepseek_moe_16b, "
+                         "deepseek_v2_lite_16b, qwen2_7b, ...) or an alias "
+                         "(mamba2-1.3b, zamba2-2.7b, deepseek-v2-lite)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--rate", type=float, default=8.0)

@@ -1,7 +1,7 @@
 """The model zoo's configuration schema for all 10 architectures, and the
 models built from it: the dense family, mamba2 (ssm), zamba2 (hybrid),
-hubert (encoder) and pixtral (vlm) (MoE and MLA follow in a later
-slice)."""
+hubert (encoder), pixtral (vlm), and deepseek-moe and deepseek-v2-lite
+(moe, the latter with multi-head latent attention)."""
 from .config import (FrontendConfig, HybridConfig, MLAConfig, ModelConfig,
                      MoEConfig, SSMConfig, param_count)
 from .transformer import (Transformer, cache_slot_view, decode_step, encode,

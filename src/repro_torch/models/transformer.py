@@ -1,6 +1,6 @@
 """Model assembly: blocks, the layer loops and the entry points.
 
-The port of ``repro/models/transformer.py`` for five families:
+The port of ``repro/models/transformer.py`` for all six families:
 
 * dense decoders (deepseek-7b, mistral-nemo-12b, qwen2-7b, gemma-7b):
   ``[attn + MLP] x L`` with pre-norm residuals;
@@ -12,20 +12,25 @@ The port of ``repro/models/transformer.py`` for five families:
   embeddings, through the feature projection and the convolutional
   positional embedding, with a per-frame classification head (``encode``);
 * VLM (pixtral-12b): the dense decoder with projected patch embeddings in
-  the sequence prefix.
+  the sequence prefix;
+* MoE (deepseek-moe-16b, deepseek-v2-lite-16b): ``[attn + FFN] x L`` whose
+  first ``first_dense_layers`` blocks keep a dense MLP of width
+  ``d_ff_dense`` and the rest an MoE FFN (:mod:`.moe`: the expert-grouped
+  matmul, kernel K6, on the kernel route); the mixer is multi-head latent
+  attention (:mod:`.mla`) where the config has ``mla``.
 
 The reference scans stacked layer parameters with ``lax.scan``; here the
 layers are an ``nn.ModuleList`` run by a Python loop. The caches keep the
 reference's stacked layouts (the KV cache ``(L, B, S_max, Hkv, hd)``, the
+MLA latents ``(L, B, S_max, rank)`` and ``(L, B, S_max, rope_dim)``, the
 mamba state ``(L, B, ...)``, the hybrid's ``(groups, ...)`` KV and
-``(groups, period, B, ...)`` mamba leaves), and every write lands in place:
+``(groups, period, B, ...)`` mamba leaves), except that the MoE family's
+dense first layers share the stack (the reference keeps their caches in a
+list beside it), and every write lands in place:
 a slot's prefill writes through a view of the arena
 (:func:`cache_slot_view`), never through a copy. The forward without a
 cache (``train_loss``, ``encode``) sends every attention layer to flash
 attention (kernel K4 on the card).
-
-The MoE and MLA families (deepseek-moe, deepseek-v2-lite) are ported in a
-later slice (ROADMAP.md, slice 11): :func:`init_params` refuses them.
 """
 from __future__ import annotations
 
@@ -43,32 +48,48 @@ from .config import ModelConfig
 from .layers import (Dense, Embedding, MLP, Norm, apply_rope, dense, embed,
                      gelu_tanh, softmax_cross_entropy, unembed)
 from .mamba2 import Mamba2, MambaCache, init_mamba_cache, mamba2_apply
+from .mla import MLA, init_mla_cache, mla_apply
+from .moe import MoE, moe_apply
 
 #: a decode cache: {"index": int} and the family's stacked leaves ("k",
-#: "v" for attention; "conv_x", "conv_bc", "ssd" for mamba layers)
+#: "v" for attention; "c_kv", "k_rope" for MLA; "conv_x", "conv_bc", "ssd"
+#: for mamba layers)
 Cache = Dict[str, Any]
 
 #: the families this port builds
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "encoder", "vlm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "encoder", "vlm", "moe")
 
 #: trailing dims after the batch axis of each cache leaf (the leading
 #: dims are layers, or groups and period)
-_CACHE_TRAILING = {"k": 3, "v": 3, "conv_x": 2, "conv_bc": 2, "ssd": 3}
+_CACHE_TRAILING = {"k": 3, "v": 3, "c_kv": 2, "k_rope": 2, "conv_x": 2,
+                   "conv_bc": 2, "ssd": 3}
 
 
 class Block(nn.Module):
-    """Pre-norm residual ``[attention + MLP]`` block (the reference's
-    ``block_init`` for the ``attn_mlp`` kind)."""
+    """Pre-norm residual ``[attention + FFN]`` block, layer ``layer`` of the
+    model (the reference's ``block_init`` for the kind ``_block_kind``
+    gives it): the mixer is :class:`~.mla.MLA` where the config has
+    ``mla``, else :class:`~.attention.Attention`; the FFN is an
+    :class:`~.moe.MoE` from layer ``first_dense_layers`` on where the
+    config has ``moe``, else an MLP (of width ``d_ff_dense`` in an MoE
+    model's dense first layers)."""
 
-    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
-                 dtype: torch.dtype, device):
+    def __init__(self, cfg: ModelConfig, layer: int = 0, *,
+                 generator: torch.Generator, dtype: torch.dtype, device):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.norm1 = Norm(cfg.norm_kind, cfg.d_model, **kw)
         self.norm2 = Norm(cfg.norm_kind, cfg.d_model, **kw)
-        self.mixer = Attention(cfg, generator=generator, **kw)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                       generator=generator, **kw)
+        self.mixer = (MLA if cfg.mla is not None else Attention)(
+            cfg, generator=generator, **kw)
+        moe = cfg.moe
+        if moe is not None and layer >= moe.first_dense_layers:
+            self.ffn = MoE(cfg, generator=generator, **kw)
+        else:
+            d_ff = (moe.d_ff_dense if moe is not None and moe.d_ff_dense
+                    else cfg.d_ff)
+            self.ffn = MLP(cfg.d_model, d_ff, cfg.mlp_kind,
+                           generator=generator, **kw)
 
 
 class MambaBlock(nn.Module):
@@ -86,17 +107,29 @@ class MambaBlock(nn.Module):
 
 def block_apply(p: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
-                cache_index: Optional[Index] = None) -> torch.Tensor:
+                cache_index: Optional[Index] = None, with_aux: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block; ``cache`` is the layer's views (the (k, v) pair of an
-    attention block, a :class:`MambaCache` of a mamba block), written in
-    place."""
+    attention block, the (c_kv, k_rope) pair of an MLA block, a
+    :class:`MambaCache` of a mamba block), written in place. Returns
+    ``(x, aux)``: ``aux`` is an MoE FFN's ``moe_aux_loss + moe_z_loss``
+    (float32) when ``with_aux``, None otherwise and for any other block. A
+    one-token step's MoE FFN is drop-free, as the reference's
+    (``drop_free=h.shape[1] == 1``)."""
     h = p.norm1(x)
     if isinstance(p, MambaBlock):
         return x + mamba2_apply(p.mixer, cfg, h, cache=cache,
-                                cache_index=cache_index)
-    x = x + attention_apply(p.mixer, cfg, h, positions, cache=cache,
-                            cache_index=cache_index)
-    return x + p.ffn(p.norm2(x))
+                                cache_index=cache_index), None
+    mix = mla_apply if isinstance(p.mixer, MLA) else attention_apply
+    x = x + mix(p.mixer, cfg, h, positions, cache=cache,
+                cache_index=cache_index)
+    h = p.norm2(x)
+    if isinstance(p.ffn, MoE):
+        out, aux = moe_apply(p.ffn, cfg, h, drop_free=h.shape[1] == 1,
+                             with_aux=with_aux)
+        return x + out, (None if aux is None
+                         else aux["moe_aux_loss"] + aux["moe_z_loss"])
+    return x + p.ffn(h), None
 
 
 class SharedBlock(nn.Module):
@@ -203,17 +236,17 @@ class Transformer(nn.Module):
     """A model of one family: the token embedding (none for an audio
     frontend), the frontend's projector where the config has one, ``L``
     blocks (attention blocks for the dense, encoder and vlm families, mamba
-    blocks for ``ssm`` and ``hybrid``), the hybrid's shared block, final
-    norm and LM head (tied to the embedding where the config says so)."""
+    blocks for ``ssm`` and ``hybrid``, attention or MLA blocks with dense
+    or MoE FFNs for ``moe``), the hybrid's shared block, final norm and LM
+    head (tied to the embedding where the config says so)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  dtype: torch.dtype, device):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-                f"this port builds {PORTED_FAMILIES} (the other families "
-                f"follow in ROADMAP.md, slice 11)")
+                f"{cfg.name}: the {cfg.family!r} family is not ported; "
+                f"this port builds {PORTED_FAMILIES}")
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device)
         front = cfg.frontend
@@ -228,10 +261,11 @@ class Transformer(nn.Module):
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
                              f"split into super-layers of "
                              f"{cfg.hybrid.period}")
-        kind = MambaBlock if cfg.family in ("ssm", "hybrid") else Block
         self.blocks = nn.ModuleList(
-            kind(cfg, generator=generator, **kw)
-            for _ in range(cfg.n_layers))
+            MambaBlock(cfg, generator=generator, **kw)
+            if cfg.family in ("ssm", "hybrid")
+            else Block(cfg, i, generator=generator, **kw)
+            for i in range(cfg.n_layers))
         self.shared = (SharedBlock(cfg, generator=generator, **kw)
                        if cfg.family == "hybrid" else None)
         self.final_norm = Norm(cfg.norm_kind, cfg.d_model, **kw)
@@ -272,6 +306,21 @@ def forward(model: Transformer, tokens: Optional[torch.Tensor] = None, *,
     layers their conv and SSD state, from zero state at a cursor of 0.
     Without, the positions attend to each other (flash attention on the
     kernel route) and mamba layers start from zero state."""
+    return _forward(model, tokens, frames=frames, patches=patches,
+                    cache=cache, cache_index=cache_index)[0]
+
+
+def _forward(model: Transformer, tokens: Optional[torch.Tensor] = None, *,
+             frames: Optional[torch.Tensor] = None,
+             patches: Optional[torch.Tensor] = None,
+             cache: Optional[Cache] = None,
+             cache_index: Optional[Index] = None, with_aux: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`forward` and the MoE layers' auxiliary loss: ``(hidden
+    states, the sum of every MoE layer's moe_aux_loss + moe_z_loss)``, a
+    float32 scalar (zero without MoE layers), summed in layer order as the
+    reference's scan sums it. Without ``with_aux`` (every caller but
+    :func:`train_loss`) the losses are not computed and the sum is None."""
     cfg = model.cfg
     front = cfg.frontend
     if front is not None and front.kind == "audio":
@@ -294,6 +343,8 @@ def forward(model: Transformer, tokens: Optional[torch.Tensor] = None, *,
         offset = offset.to(h.device)[:, None]   # ragged decode: per-row ages
     positions = (offset + torch.arange(s, device=h.device)[None, :]
                  ).expand(b, s)
+    aux = (torch.zeros((), dtype=torch.float32, device=h.device)
+           if with_aux else None)
     if cfg.family == "hybrid":
         emb0, period = h, cfg.hybrid.period
         for g in range(cfg.n_layers // period):
@@ -303,7 +354,7 @@ def forward(model: Transformer, tokens: Optional[torch.Tensor] = None, *,
                                                   cache["v"][g]),
                 cache_index=cache_index)
             for i in range(period):
-                h = block_apply(
+                h, _ = block_apply(
                     model.blocks[g * period + i], cfg, h, positions,
                     cache=None if cache is None else _mamba_layer(cache,
                                                                   g, i),
@@ -313,10 +364,14 @@ def forward(model: Transformer, tokens: Optional[torch.Tensor] = None, *,
             layer_cache = None
             if cache is not None:
                 layer_cache = (_mamba_layer(cache, i) if cfg.family == "ssm"
+                               else (cache["c_kv"][i], cache["k_rope"][i])
+                               if cfg.mla is not None
                                else (cache["k"][i], cache["v"][i]))
-            h = block_apply(block, cfg, h, positions, cache=layer_cache,
-                            cache_index=cache_index)
-    return model.final_norm(h)
+            h, a = block_apply(block, cfg, h, positions, cache=layer_cache,
+                               cache_index=cache_index, with_aux=with_aux)
+            if a is not None:
+                aux = aux + a
+    return model.final_norm(h), aux
 
 
 def _mamba_layer(cache: Cache, *layer: int) -> MambaCache:
@@ -336,8 +391,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """The family's decode cache, zeros on ``device``, with a write cursor
     ``index``:
 
-    * dense and vlm: keys and values ``(L, B, S_max, Hkv, hd)`` in
-      ``dtype``;
+    * dense, vlm and moe: keys and values ``(L, B, S_max, Hkv, hd)`` in
+      ``dtype``; with MLA (deepseek-v2-lite) the latents ``c_kv`` ``(L, B,
+      S_max, kv_lora_rank)`` and ``k_rope`` ``(L, B, S_max,
+      rope_head_dim)`` instead (the reference keeps its first dense
+      layers' caches in a list beside an ``(L - first_dense_layers, ...)``
+      stack; here all ``L`` layers share one stack);
     * ssm: the mamba state of :func:`init_mamba_cache`, ``(L, B, ...)``
       (float32, as the reference's);
     * hybrid: the shared block's keys and values ``(groups, B, S_max,
@@ -348,12 +407,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``ValueError``, the reference's rule (``launch/specs.py``)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"no decode cache for the {cfg.family!r} "
-                                  f"family yet (ROADMAP.md, slice 11)")
+                                  f"family: it is not ported")
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name}: encoder-only: no decode step")
-    if cfg.family in ("dense", "vlm"):
-        return {"index": 0, **init_kv_cache(cfg, batch, max_len, dtype,
-                                             device=device)}
+    if cfg.family in ("dense", "vlm", "moe"):
+        init = init_mla_cache if cfg.mla is not None else init_kv_cache
+        return {"index": 0, **init(cfg, batch, max_len, dtype,
+                                   device=device)}
     if cfg.family == "ssm":
         return {"index": 0, **init_mamba_cache(cfg, batch, device=device)}
     hcfg = cfg.hybrid
@@ -384,13 +444,17 @@ def cache_slot_view(cache: Cache, slot: int) -> Cache:
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor, cache: Cache):
+def prefill(model: Transformer, tokens: torch.Tensor, cache: Cache, *,
+            patches: Optional[torch.Tensor] = None):
     """Process the prompt ``tokens`` (B, S) at the cache's cursor; returns
     ``(last-position logits (B, vocab), cache)`` with the cache written in
-    place and its cursor advanced by S. At cursor 0 the mamba layers start
-    from zero state; a multi-token prompt at a cursor > 0 of a model with
-    mamba layers raises ``NotImplementedError``."""
-    h = forward(model, tokens, cache=cache, cache_index=cache["index"])
+    place and its cursor advanced by S. A vision model's ``patches`` (B, P,
+    d_in) take the first P positions, as in :func:`forward`. At cursor 0
+    the mamba layers start from zero state; a multi-token prompt at a
+    cursor > 0 of a model with mamba layers raises
+    ``NotImplementedError``."""
+    h = forward(model, tokens, patches=patches, cache=cache,
+                cache_index=cache["index"])
     logits = logits_from_hidden(model, h[:, -1:])
     cache["index"] += tokens.shape[1]
     return logits[:, 0], cache
@@ -425,20 +489,21 @@ def train_loss(model: Transformer, batch: Dict[str, torch.Tensor]
     """The training objective of the reference's ``train_loss``: token-mean
     cross-entropy of ``batch["labels"]`` (B, S) under the optional
     ``loss_mask`` (B, S), chunked over the sequence when ``cfg.loss_chunk``
-    divides S (and is shorter), plus the auxiliary loss (zero for every
-    family ported so far). ``batch`` holds the :func:`forward` inputs
+    divides S (and is shorter), plus the auxiliary loss (the MoE layers'
+    ``moe_aux_loss + moe_z_loss``, zero for the other families). ``batch``
+    holds the :func:`forward` inputs
     (``tokens``, ``frames``, ``patches``). Returns ``(loss, {"ce",
     "aux"})``, float32 scalars.
 
     On the kernel route (``attention_impl == "kernel"``) it runs under
-    ``torch.no_grad()``: flash attention (K4) has no backward kernel, as
-    the reference's has none; differentiate through
-    ``attention_impl="reference"``."""
+    ``torch.no_grad()``: flash attention (K4) and the grouped matmul (K6)
+    have no backward kernels, as the reference's have none; differentiate
+    through ``attention_impl="reference"``."""
     cfg = model.cfg
     grad = (torch.no_grad() if cfg.attention_impl == "kernel"
             else contextlib.nullcontext())
     with grad:
-        h = forward(model, **_batch_inputs(batch))
+        h, aux = _forward(model, **_batch_inputs(batch), with_aux=True)
         labels, mask = batch["labels"], batch.get("loss_mask")
         c = cfg.loss_chunk
         if c and h.shape[1] % c == 0 and h.shape[1] > c:
@@ -446,7 +511,6 @@ def train_loss(model: Transformer, batch: Dict[str, torch.Tensor]
         else:
             ce = softmax_cross_entropy(logits_from_hidden(model, h), labels,
                                        mask)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         loss = ce + aux
     return loss, {"ce": ce, "aux": aux}
 

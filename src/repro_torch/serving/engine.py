@@ -68,7 +68,8 @@ class ServingEngine:
     """Single-replica engine; slots/max_len are Demeter's knobs.
 
     ``model`` is a :class:`~repro_torch.models.Transformer` of a ported
-    family with a decode step (dense, ssm, hybrid, or vlm on tokens); it
+    family with a decode step (dense, ssm, hybrid, moe with or without
+    MLA, or vlm on tokens); it
     is moved to ``device`` (the card unless the caller passes
     ``device="cpu"``) if it lies elsewhere. The cache's dtype follows the model's parameters.
     """

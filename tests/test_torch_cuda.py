@@ -6,11 +6,12 @@ has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-They hold the fused-tick, RLS, decode-attention, SSD-scan and
-flash-attention kernels against their plain versions, and the fused
-engine, a short Demeter sweep, small serving runs (dense, mamba2, zamba2),
-hubert's ``encode`` and pixtral's ``train_loss`` on the card against the
-same runs on the CPU.
+They hold the fused-tick, RLS, decode-attention, SSD-scan,
+flash-attention, grouped-matmul and fused-RMSNorm kernels against their
+plain versions, and the fused engine, a short Demeter sweep, small serving
+runs (dense, mamba2, zamba2, deepseek-moe, deepseek-v2-lite), hubert's
+``encode`` and pixtral's ``train_loss`` on the card against the same runs
+on the CPU.
 ``chip_smoke.py`` does the same at the main paths' full size.
 """
 import copy
@@ -28,11 +29,14 @@ from repro_torch.dsp import (FailuresAt, PeriodicFailures, ScenarioSpec,
 from repro_torch.kernels import decode_attention as attn_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_tick as kmod
+from repro_torch.kernels import grouped_matmul as gmm_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import rls_update as rls_mod
+from repro_torch.kernels import rmsnorm as rms_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.ref import (decode_attention_ref,
-                                     flash_attention_ref, fused_tick_ref,
+                                     flash_attention_ref, fused_rmsnorm_ref,
+                                     fused_tick_ref, grouped_matmul_ref,
                                      rls_rank1_update_ref, ssd_scan_ref)
 from repro_torch.models import encode, init_params, train_loss
 from repro_torch.serving import Request, ServingEngine
@@ -490,3 +494,138 @@ def test_cacheless_forward_on_card_matches_cpu(cuda):
         want = run(cpu_model, batch)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+def _gmm_operands(n_tok, e, k, n, blk, dtype, device, seed=0):
+    """Assignments of n_tok tokens to e experts (a fifth dropped), sorted
+    into the model path's static buffer (tiles of -1 past the last
+    group)."""
+    rng = np.random.default_rng(seed)
+    eids = torch.as_tensor(rng.integers(0, e, n_tok), device=device)
+    keep = torch.as_tensor(rng.random(n_tok) < 0.8, device=device)
+    srt = gmm_mod.sort_assignments(eids, keep, e, blk)
+    lhs = torch.zeros(srt.rows + 1, k, device=device)
+    lhs[srt.dest] = torch.as_tensor(rng.normal(size=(n_tok, k)),
+                                    dtype=torch.float32, device=device)
+    rhs = torch.as_tensor(rng.normal(size=(e, k, n)) / math.sqrt(k),
+                          dtype=dtype, device=device)
+    return lhs[:srt.rows].to(dtype), rhs, srt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n_tok,e,k,n,blk", [
+    (300, 4, 128, 256, 128), (1000, 8, 256, 128, 128), (64, 2, 128, 128, 16),
+    (96, 64, 2048, 1408, 16), (700, 64, 1408, 2048, 64), (50, 3, 48, 80, 32)])
+def test_grouped_matmul_kernel_matches_plain_version(cuda, n_tok, e, k, n,
+                                                     blk, dtype, tol):
+    """The reference tests' shapes, deepseek-moe's decode (16 tokens x
+    top-6 over 64 experts, gate: 2048 -> 1408) and down-projection shapes,
+    and K, N that no tile divides; every blk_m the model path takes. Within
+    ``tol`` of the plain version's scale (float32 sums in another order;
+    in bf16, one rounding of each either way)."""
+    lhs, rhs, srt = _gmm_operands(n_tok, e, k, n, blk, dtype, cuda)
+    before = gmm_mod.grouped_matmul.launches
+    got = ops.grouped_matmul(lhs, rhs, srt.tile_expert, blk_m=blk)
+    torch.cuda.synchronize()
+    assert gmm_mod.grouped_matmul.launches == before + 1
+    want = grouped_matmul_ref(lhs, rhs, srt.tile_expert, blk)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert err <= tol, err
+    assert not got.view(-1, blk, n)[srt.tile_expert < 0].any()
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_kernel_rejects_bad_operands(cuda):
+    lhs, rhs, srt = _gmm_operands(40, 4, 64, 32, 16, torch.bfloat16, cuda)
+    te = srt.tile_expert
+    with pytest.raises(ValueError, match="blk_m"):
+        gmm_mod.grouped_matmul(lhs, rhs, te, blk_m=8)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        gmm_mod.grouped_matmul(lhs[:, :40].contiguous(),
+                               rhs[:, :40].contiguous(), te, blk_m=16)
+    with pytest.raises(TypeError, match="int32"):
+        gmm_mod.grouped_matmul(lhs, rhs, te.long(), blk_m=16)
+    with pytest.raises(TypeError, match="like lhs"):
+        gmm_mod.grouped_matmul(lhs, rhs.float(), te, blk_m=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_mod.grouped_matmul(
+            lhs, rhs.transpose(1, 2).contiguous().transpose(1, 2), te,
+            blk_m=16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gmm_mod.grouped_matmul(lhs, rhs.cpu(), te, blk_m=16)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_has_no_backward(cuda):
+    lhs, rhs, srt = _gmm_operands(40, 4, 64, 32, 16, torch.float32, cuda)
+    out = ops.grouped_matmul(lhs, rhs.requires_grad_(), srt.tile_expert,
+                             blk_m=16)
+    with pytest.raises(NotImplementedError, match="K6"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 37, 512), (2, 256, 128), (7, 64),
+                                   (16, 256, 2048), (3, 5120), (5, 33)])
+def test_fused_rmsnorm_kernel_matches_plain_version(cuda, shape, dtype):
+    """The reference tests' shapes, deepseek's width, pixtral's 5120 and a
+    width with no 16-byte vectors (33): y and s within 1e-5 in float32 and
+    one bf16 ulp of each element in bf16."""
+    rng = np.random.default_rng(shape[-1])
+    x, res = (torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                              device=cuda) for _ in range(2))
+    sc = torch.as_tensor(rng.normal(size=shape[-1:]) * 0.1, dtype=dtype,
+                         device=cuda)
+    before = rms_mod.fused_rmsnorm.launches
+    got = ops.fused_rmsnorm(x, res, sc)
+    torch.cuda.synchronize()
+    assert rms_mod.fused_rmsnorm.launches == before + 1
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2.0 ** -7, atol=0.0))
+    for g, w in zip(got, fused_rmsnorm_ref(x, res, sc)):
+        assert g.dtype == dtype and g.shape == shape
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_fused_rmsnorm_has_no_backward(cuda):
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    y, s = ops.fused_rmsnorm(x, torch.randn_like(x),
+                             torch.zeros(64, device=cuda))
+    with pytest.raises(NotImplementedError, match="K7"):
+        (y.sum() + s.sum()).backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_lite_16b"])
+def test_moe_serving_on_card_matches_cpu(cuda, arch):
+    """The smoke config with one head of 64 (K3's smallest head dim) in
+    float32, 3 requests through 2 slots: the card (K6 three times per MoE
+    layer and model call, K3 in deepseek-moe's decode attention) gives the
+    CPU's tokens."""
+    cfg = smoke_config(arch).scaled(n_heads=1, n_kv_heads=1)
+    model = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 20, 13)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, copy.deepcopy(model), n_slots=2, max_len=48,
+                            device=dev)
+        before = gmm_mod.grouped_matmul.launches
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(f"r{i}", pr, max_tokens=5, arrival_s=0.0))
+        calls = 0
+        while eng.queue or eng.cache_mgr.active():
+            calls += eng.admit()
+            calls += 1 if eng.step() else 0
+        outs[dev] = [eng.requests[f"r{i}"].output for i in range(3)]
+        moe_layers = cfg.n_layers - cfg.moe.first_dense_layers
+        if dev == "cuda":
+            assert gmm_mod.grouped_matmul.launches - before \
+                == 3 * moe_layers * calls
+    assert outs["cuda"] == outs["cpu"]

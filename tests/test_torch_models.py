@@ -14,7 +14,13 @@ CPU) and the port (torch on the CPU):
   that is no multiple of the kernel's block;
 * ``prefill`` and ``decode_step`` logits of the four dense smoke configs at
   rtol 1e-5 (atol 1e-5 of the logits' scale), through the plain attention
-  and through the kernel route.
+  and through the kernel route;
+* decode continuity, the port's mirror of
+  ``tests/test_arch_smoke.py::test_decode_continuity``: ``prefill`` of 16
+  tokens and one ``decode_step`` give the 17-token ``forward``'s last
+  logits within 5e-4 (float32) for every smoke config that decodes
+  (pixtral with its patch prefix), and the reference's own
+  ``prefill``/``decode_step`` logits on the same parameters.
 """
 import dataclasses
 import math
@@ -42,8 +48,9 @@ from repro_torch.configs import ARCH_IDS, get_config, smoke_config  # noqa: E402
 from repro_torch.interop import (load_reference_params,  # noqa: E402
                                  model_config_from_dict,
                                  model_params_from_reference)
-from repro_torch.models import (decode_step, init_cache,  # noqa: E402
-                                init_params, prefill)
+from repro_torch.models import (decode_step, forward,  # noqa: E402
+                                init_cache, init_params, logits_from_hidden,
+                                prefill)
 from repro_torch.models import attention, layers  # noqa: E402
 from repro_torch.models.transformer import PORTED_FAMILIES  # noqa: E402
 from repro_torch.kernels.ref import decode_attention_ref  # noqa: E402
@@ -106,20 +113,20 @@ def test_configs_carry_across(arch):
 
 
 def test_non_dense_families_are_refused():
-    """The families not ported yet (moe, which holds the mla config too)
-    are refused; dense, ssm, hybrid, encoder and vlm build."""
-    refused = set()
+    """Every family of the ten configs is ported (moe, which holds the mla
+    config too, came last) and builds; a family outside the port is
+    refused."""
     for arch in ARCH_IDS:
         cfg = smoke_config(arch)
-        if cfg.family in PORTED_FAMILIES:
-            continue
-        refused.add(cfg.family)
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            init_cache(cfg, 1, 8, device="cpu")
-    assert refused == {"moe"}
-    assert PORTED_FAMILIES == ("dense", "ssm", "hybrid", "encoder", "vlm")
+        assert cfg.family in PORTED_FAMILIES
+        init_params(cfg, device="cpu")
+    assert PORTED_FAMILIES == ("dense", "ssm", "hybrid", "encoder", "vlm",
+                               "moe")
+    cfg = dataclasses.replace(smoke_config("qwen2_7b"), family="bogus")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_init_cache_refuses_the_encoder():
@@ -337,3 +344,43 @@ def test_prefill_and_decode_logits_match_reference(arch, impl):
             None if lengths is None else torch.from_numpy(lengths))
         _logits_close(got, want)
         assert cache["index"] == int(ref_cache["index"])
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if smoke_config(a).supports_decode])
+def test_decode_continuity(arch):
+    """prefill(16) + decode(1) == forward(17) at 5e-4 in float32 (the
+    reference's own test and bar), with the reference's parameters carried
+    across; the decode logits also equal the reference's ``prefill`` +
+    ``decode_step`` on those parameters at 5e-4. A vision model prefills
+    its patch prefix."""
+    ref_cfg, params, cfg, model = _model_pair(arch, "kernel")
+    rng = np.random.default_rng(7)
+    b = 2
+    toks = rng.integers(0, cfg.vocab_size, (b, 17)).astype(np.int32)
+    ref_batch = {"tokens": jnp.asarray(toks)}
+    patches = None
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        pp = rng.normal(0, 1.0, (b, cfg.frontend.prefix_len,
+                                 cfg.frontend.d_in)).astype(np.float32)
+        ref_batch["patches"] = jnp.asarray(pp)
+        patches = torch.from_numpy(pp)
+    t = torch.from_numpy(toks).long()
+    want = logits_from_hidden(model, forward(model, t, patches=patches))[:, -1]
+
+    cache = init_cache(cfg, b, 64, dtype=torch.float32, device="cpu")
+    _, cache = prefill(model, t[:, :16], cache, patches=patches)
+    got, cache = decode_step(model, t[:, 16:17], cache)
+    np.testing.assert_allclose(got.numpy(), want.detach().numpy(),
+                               atol=5e-4, rtol=5e-4)
+    assert cache["index"] == 17
+
+    ref_cache = ref_models.init_cache(ref_cfg, b, 64, dtype=jnp.float32)
+    _, ref_cache = ref_models.prefill(
+        params, ref_cfg, {**ref_batch, "tokens": jnp.asarray(toks[:, :16])},
+        ref_cache)
+    ref_got, _ = ref_models.decode_step(params, ref_cfg,
+                                        jnp.asarray(toks[:, 16:17]),
+                                        ref_cache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_got), atol=5e-4,
+                               rtol=5e-4)

@@ -35,7 +35,11 @@ def _env():
                                     "repro_torch.core",
                                     "repro_torch.interop",
                                     "repro_torch.kernels.flash_attention",
+                                    "repro_torch.kernels.grouped_matmul",
+                                    "repro_torch.kernels.rmsnorm",
                                     "repro_torch.models",
+                                    "repro_torch.models.moe",
+                                    "repro_torch.models.mla",
                                     "repro_torch.configs",
                                     "repro_torch.serving",
                                     "repro_torch.launch.serve"])
