@@ -10,7 +10,11 @@ Phases, each of which exits non-zero on failure:
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the shapes both main paths give it and larger ones, with CUDA-event
    times: ``fused_tick`` (K2), ``rls_update`` (K1, float64 and float32),
-   ``decode_attention`` (K3), ``ssd_scan`` (K5: the mamba2 and zamba2
+   ``decode_attention`` (K3, split over positions: the serving shape beside
+   ``scaled_dot_product_attention``, one row of 32 768 positions,
+   deepseek-moe-16b's G = 1 over 16 KV heads, and a sweep over groups and
+   head dims; zeros at length 0 and the same bits on a second call),
+   ``ssd_scan`` (K5: the mamba2 and zamba2
    prefill shapes in bf16 and float32, the reference tests' shapes in
    float32, and strong decay, within 5e-5 in float32 and 2e-2 in bf16 of
    its plain version, atol and rtol) and ``flash_attention`` (K4: the
@@ -18,7 +22,10 @@ Phases, each of which exits non-zero on failure:
    ``scaled_dot_product_attention``, one layer of the reference's
    prefill_32k encoder cell, the reference tests' shapes in float32 both
    causal and not, gemma's head dim and a ragged length of 300; within
-   2e-5 in float32 and 2e-2 in bf16), ``grouped_matmul`` (K6: deepseek-
+   2e-5 in float32 and 2e-2 in bf16), each K3 and K4 row naming the design
+   that ran (``split-kv``, ``wgmma-tma``, ``mma.sync`` or ``cuda-cores``)
+   and its kernels' registers and spills from ``-Xptxas -v``,
+   ``grouped_matmul`` (K6: deepseek-
    moe-16b's decode step, 16 tokens x top-6 over 64 experts at blk_m 16,
    and a 2048-token prompt at blk_m 128, gate/up 2048 -> 1408 and down
    1408 -> 2048 in bf16 beside ``torch._grouped_mm`` and the capacity
@@ -314,6 +321,52 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
             "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
 
+#: registers and spills of each kernel function as ``nvcc -Xptxas -v``
+#: reported them when phase 2 built it, by "name<template ints>"
+PTXAS: dict = {}
+
+
+def ptxas_table(log: str) -> dict:
+    """Each entry function of a ``-Xptxas -v`` log: its registers and spill
+    bytes, under its name and integer template arguments (as
+    ``flash_wgmma_kernel<80>``)."""
+    import re
+    table, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:   # the mangled name: length-prefixed identifiers (a hash
+            # before one may end in digits, so try each digit start)
+            mangled, name = m.group(1), m.group(1)
+            for i in range(len(mangled)):
+                d = re.match(r"\d+", mangled[i:])
+                j = i + d.end() if d else i
+                ident = mangled[j:j + int(d.group())] if d else ""
+                if ident.endswith("_kernel") \
+                        and re.fullmatch(r"[A-Za-z_]\w*", ident):
+                    rest = mangled[j + len(ident):]
+                    args = re.findall(r"Li(\d+)E",
+                                      re.match(r"I?((?:Li\d+E)*)",
+                                               rest).group(1))
+                    name = ident + (f"<{','.join(args)}>" if args else "")
+                    break
+            table[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            table[name]["spill_stores"] = int(m.group(1))
+            table[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table[name]["registers"] = int(m.group(1))
+    return table
+
+
+def ptxas_of(*names: str) -> dict:
+    """The phase-2 ``-Xptxas -v`` figures of the named kernel functions."""
+    return {n: PTXAS.get(n, "not in the build log") for n in names}
+
+
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -410,7 +463,8 @@ def check_rls(B: int, k: int, dtype) -> dict:
 def attention_operands(B: int, S: int, Hkv: int, G: int, D: int, dtype,
                        seed: int = 0):
     """Random decode-attention operands on the card, in the cache's layout,
-    with ragged lengths that include 0, 1 and S_max."""
+    with ragged lengths that include 0, 1 and S_max (a batch of fewer than
+    three rows: S_max first)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -419,7 +473,8 @@ def attention_operands(B: int, S: int, Hkv: int, G: int, D: int, dtype,
                for shape in ((B, 1, Hkv * G, D), (B, S, Hkv, D),
                              (B, S, Hkv, D)))
     lengths = rng.integers(1, S + 1, B)
-    lengths[:3] = [0, 1, S]
+    special = [0, 1, S] if B >= 3 else [S]
+    lengths[:len(special)] = special
     return q, k, v, torch.as_tensor(lengths, dtype=torch.int32,
                                     device="cuda")
 
@@ -443,10 +498,18 @@ def check_decode_attention(B: int, S: int, Hkv: int, G: int, D: int, dtype,
     label = f"decode_attention B={B} S={S} Hkv={Hkv} G={G} D={D} {name}"
     if not err <= ATTN_BARS[name]:
         fail(f"{label}: max abs error {err} exceeds {ATTN_BARS[name]}")
-    if got[0].any():
+    if int(lengths[0]) == 0 and got[0].any():
         fail(f"{label}: a row of length 0 is not zero")
+    if not torch.equal(kmod.decode_attention(q, k, v, lengths), got):
+        fail(f"{label}: a second call is not bit for bit the first")
+    chunk, n_split = kmod.split_plan(
+        B, S, Hkv, torch.cuda.get_device_properties(0).multi_processor_count)
+    pass1 = (f"decode_split_bf16_kernel<{D}>" if dtype == torch.bfloat16
+             else f"decode_split_f32_kernel<{D},{1 << (G - 1).bit_length()}>")
     out = {"B": B, "S_max": S, "Hkv": Hkv, "G": G, "D": D, "dtype": name,
-           "max_abs_err": err}
+           "max_abs_err": err, "design": "split-kv", "chunk": chunk,
+           "n_split": n_split,
+           "ptxas": ptxas_of(pass1, "decode_merge_kernel")}
     call = lambda: kmod.decode_attention(q, k, v, lengths)  # noqa: E731
     out["ms"] = device_ms(call)
     if not timed:
@@ -595,8 +658,13 @@ def check_flash_attention(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype,
     if not share <= 1.0:
         fail(f"{label}: differs from the plain version by {err} (bar {tol} "
              f"+ {tol}|plain|)")
+    design = kmod.design(D, dtype)
+    fn = (f"flash_wgmma_kernel<{D}>" if design == "wgmma-tma" else
+          f"flash_{'bf16' if dtype == torch.bfloat16 else 'f32'}_kernel"
+          f"<{kmod.padded_head_dim(D)}>")
     out = {"B": B, "S": Sq, "Hq": Hq, "Hkv": Hkv, "D": D, "dtype": name,
-           "causal": causal, "max_abs_err": err, "bar_share": share}
+           "causal": causal, "max_abs_err": err, "bar_share": share,
+           "design": design, "ptxas": ptxas_of(fn)}
     call = lambda: kmod.flash_attention(q, k, v, causal=causal)  # noqa: E731
     out["ms"] = device_ms(call, n=n, warmup=3, host_n=n)
     if not timed:
@@ -1895,6 +1963,7 @@ def main() -> int:
     for lib_name, lib in sorted(libs.items()):
         log = lib.with_suffix(".log")
         if log.exists():
+            PTXAS.update(ptxas_table(log.read_text()))
             print(f"ptxas {lib_name}: " + " | ".join(
                 ln.strip() for ln in log.read_text().splitlines()
                 if "registers" in ln or "spill" in ln or "stack" in ln),
@@ -1926,6 +1995,15 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         r = check_decode_attention(*serve_shape, dtype, timed=True)
         attn_rows[r["dtype"]] = r
+        print("kernel decode_attention " + json.dumps(r), flush=True)
+    # one row of 32 768 positions (a CTA per row and head would take it
+    # alone) and deepseek-moe-16b's decode (G = 1, Hkv = 16)
+    moe_cfg = get_config(MOE_ARCH)
+    for shape in ((1, PREFILL_32K) + serve_shape[2:],
+                  (SERVE_SLOTS, SERVE_MAX_LEN, moe_cfg.n_kv_heads,
+                   moe_cfg.n_heads // moe_cfg.n_kv_heads,
+                   moe_cfg.resolved_head_dim)):
+        r = check_decode_attention(*shape, torch.bfloat16, timed=True)
         print("kernel decode_attention " + json.dumps(r), flush=True)
     for G in ATTN_SWEEP_GROUPS:
         for D in ATTN_SWEEP_DIMS:
@@ -1986,7 +2064,6 @@ def main() -> int:
     # (timed beside the plain version, torch._grouped_mm and the einsums)
     # and at the other blk_m (its time only); gate/up 2048 -> 1408, down
     # 1408 -> 2048; then the reference tests' shapes in float32
-    moe_cfg = get_config(MOE_ARCH)
     e = moe_cfg.moe
     gmm_rows = {}
     for key, n_tok in (("decode", SERVE_SLOTS), ("prefill", SERVE_PROMPTS[1])):
@@ -2172,6 +2249,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:71",
         "launches": serve_path["launches"]["decode_attention"],
+        "design": attn["design"],
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"], "plain_ms": attn["plain_ms"],
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
@@ -2190,6 +2268,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
         "launches": encoder_path["launches"]["flash_attention"],
+        "design": flash["design"],
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],

@@ -41,8 +41,8 @@ SIGNATURES = {
                    [_C] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
                    + [_C] * 3),
     "decode_attention": ("decode_attention_launch",
-                         [_C] * 5 + [ctypes.c_int64, ctypes.c_int64]
-                         + [ctypes.c_int] * 4 + [_C]),
+                         [_C] * 6 + [ctypes.c_int64, ctypes.c_int64]
+                         + [ctypes.c_int] * 6 + [_C]),
     "flash_attention": ("flash_attention_launch",
                         [_C] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 5
                         + [_C]),

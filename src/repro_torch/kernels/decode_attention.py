@@ -8,10 +8,19 @@ launches it once per layer. It reads the cache in place, in the layout the
 model keeps it, ``(B, S_max, Hkv, D)``. The kernel takes CUDA tensors only;
 :func:`repro_torch.kernels.ops.decode_attention` routes CPU tensors to the
 plain version (:func:`repro_torch.kernels.ref.decode_attention_ref`).
+
+Each call is two launches: pass 1 splits every (row, KV head) over CTAs
+in chunks of positions (:func:`split_plan`, from the shapes alone, so the
+wrapper never reads ``lengths`` and never syncs), pass 2 merges the
+chunks' partial softmax states in chunk order. The float32 partials
+(``B·Hq·n_split·(D+2)`` values) are allocated here; the kernel allocates
+nothing. :func:`repro_torch.kernels.ref.decode_attention_split_ref` is the
+same algorithm in plain torch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple, Union
 
 import torch
@@ -23,6 +32,43 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is built for, and the largest group it takes
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16
+#: a chunk is a power of two of at least 64 positions (four warps of
+#: 16-position tiles): it starts at BASE_CHUNK and stays within these bounds
+MIN_CHUNK, BASE_CHUNK, MAX_CHUNK = 64, 512, 2048
+#: pass 1 grows its chunks only while it keeps this many CTAs per SM
+CTAS_PER_SM = 4
+
+
+def split_plan(B: int, S_max: int, Hkv: int, n_sm: int) -> Tuple[int, int]:
+    """``(chunk, n_split)`` of pass 1: each (row, KV head) is cut into
+    ``n_split = ceil(S_max / chunk)`` chunks of ``chunk`` positions, chunk
+    ``i`` covering ``[i·chunk, (i+1)·chunk)``, one CTA each.
+
+    The chunk starts at ``BASE_CHUNK``; it halves (down to ``MIN_CHUNK``)
+    while the ``B·Hkv·n_split`` CTAs would not fill the ``n_sm`` SMs once,
+    and doubles (up to ``MAX_CHUNK``) while the larger chunk still leaves
+    ``CTAS_PER_SM`` CTAs an SM: every CTA and the merge have a fixed cost,
+    so chunks are as large as filling the card allows. The plan depends on
+    the shapes only, never on the lengths, so choosing it costs no device
+    sync and a CUDA graph can capture it.
+    """
+    if min(B, S_max, Hkv, n_sm) < 1:
+        raise ValueError(f"split_plan takes positive shapes, got B={B}, "
+                         f"S_max={S_max}, Hkv={Hkv}, n_sm={n_sm}")
+
+    def ctas(chunk: int) -> int:
+        return B * Hkv * -(-S_max // chunk)
+    chunk = BASE_CHUNK
+    while chunk > MIN_CHUNK and ctas(chunk) < n_sm:
+        chunk //= 2
+    while chunk < MAX_CHUNK and ctas(2 * chunk) >= CTAS_PER_SM * n_sm:
+        chunk *= 2
+    return chunk, -(-S_max // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -71,7 +117,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor or (B,) integers, clamped to [0, S_max] by the kernel.
 
     Returns ``out (B, 1, Hq, D)`` in q's dtype (zeros for a row of length
-    0), launched on the current stream without a sync.
+    0), launched on the current stream without a sync. Both passes count
+    as one launch of ``decode_attention.launches``.
     """
     B, S, Hkv, G, D = _check(q, k, v)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
@@ -79,13 +126,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lengths must be a scalar or ({B},), got shape "
                          f"{tuple(lengths.shape)}")
     lengths = lengths.reshape(-1).expand(B).contiguous()
+    chunk, n_split = split_plan(B, S, Hkv, _sm_count(q.device.index))
     out = torch.empty_like(q)
+    part = torch.empty(B * Hkv * G * n_split * (D + 2), dtype=torch.float32,
+                       device=q.device)
     fn = build.load("decode_attention").decode_attention_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-        rc = fn(ptr(q), ptr(k), ptr(v), ptr(lengths), ptr(out), B, S, Hkv, G,
-                D, _DTYPES[q.dtype], ctypes.c_void_p(stream))
+        rc = fn(ptr(q), ptr(k), ptr(v), ptr(lengths), ptr(out), ptr(part), B,
+                S, Hkv, G, D, _DTYPES[q.dtype], chunk, n_split,
+                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")

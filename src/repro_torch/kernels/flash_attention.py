@@ -11,7 +11,9 @@ keeps them, ``(B, S, H, D)``. The kernel takes CUDA tensors only;
 plain version (:func:`repro_torch.kernels.ref.flash_attention_ref`).
 
 In bfloat16 both products run on the tensor cores, and the softmax weights
-P are rounded to bfloat16 before P·V (the plain version rounds them too);
+P are rounded to bfloat16 before P·V (the plain version rounds them too):
+at the head dims every configuration but gemma's uses (64, 80, 128) on
+``wgmma`` with TMA loads, at the others on ``mma.sync`` (:func:`design`).
 float32 runs on the CUDA cores in full float32, with no TF32 and no
 rounding of P. The kernel has no backward: where autograd would need one,
 the output's backward raises.
@@ -31,6 +33,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: 256) and the grid's limit on the batch and on the query heads
 MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65535
+#: bfloat16 head dims that take the wgmma/TMA kernel
+WGMMA_HEAD_DIMS = (64, 80, 128)
+#: the widths the mma.sync and CUDA-core kernels pad a head dim to
+PADDED_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+
+
+def design(D: int, dtype: torch.dtype) -> str:
+    """Which of the kernel's bodies runs for head dim ``D`` in ``dtype``:
+    ``"wgmma-tma"`` (bfloat16 at D in :data:`WGMMA_HEAD_DIMS`),
+    ``"mma.sync"`` (bfloat16 otherwise) or ``"cuda-cores"`` (float32)."""
+    if dtype == torch.float32:
+        return "cuda-cores"
+    return "wgmma-tma" if D in WGMMA_HEAD_DIMS else "mma.sync"
+
+
+def padded_head_dim(D: int) -> int:
+    """The width the mma.sync and CUDA-core bodies pad ``D`` to."""
+    return next(p for p in PADDED_HEAD_DIMS if D <= p)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

@@ -7,6 +7,7 @@ CUDA kernel against its plain version on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
@@ -63,8 +64,9 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One-token grouped-query attention over each row's first
     ``lengths[b]`` cache entries: the model's plain attention
     (:func:`repro_torch.models.attention.sdpa_reference`, which casts the
-    softmax weights to v's dtype before the weighted sum; the CUDA kernel
-    keeps them in float32), with rows of length 0 set to zeros.
+    normalised softmax weights to v's dtype before the weighted sum; the
+    CUDA kernel rounds its unnormalised weights to bf16 instead, and keeps
+    them in float32 for float32), with rows of length 0 set to zeros.
 
     q: ``(B, 1, Hq, D)``; k, v: ``(B, S_max, Hkv, D)`` with ``Hq = G·Hkv``
     (query head ``h·G + g`` reads KV head ``h``); lengths: an int, a 0-d
@@ -81,6 +83,60 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = sdpa_reference(q, k, v, causal=False, kv_valid_len=lengths)
     empty = (lengths <= 0).reshape(-1, 1, 1, 1)
     return out.masked_fill(empty, 0.0)
+
+
+#: the reference's NEG_INF: the masked score, and a chunk's empty maximum
+NEG_INF = -2.0 ** 30
+
+
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               lengths: Union[int, torch.Tensor],
+                               n_split: int) -> torch.Tensor:
+    """K3's split-and-merge algorithm in plain torch, float32 throughout:
+    the function of :func:`decode_attention_ref`, computed as the CUDA
+    kernel computes it. Nothing on the serving path calls it; the tests
+    hold it against :func:`decode_attention_ref` and the reference's
+    Pallas kernel.
+
+    Each row's cache is cut into ``n_split`` chunks of ``ceil(S_max /
+    n_split)`` positions. Chunk ``i`` keeps its own softmax state over its
+    valid positions: ``m_i`` (the largest scaled score, ``NEG_INF`` when
+    the chunk holds none), ``l_i`` (the sum of ``exp(s - m_i)``, 0 when
+    empty) and ``o_i`` (the weighted sum of V, zeros when empty). The
+    merge takes ``m = max m_i``, rescales every chunk by ``exp(m_i - m)``
+    and adds them in chunk order, then divides by ``max(l, 1e-30)``: a row
+    of length 0 gives zeros. Shapes as :func:`decode_attention_ref`.
+    """
+    B, _, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    chunk = -(-S // n_split)
+    lengths = torch.as_tensor(lengths, device=q.device).reshape(-1)
+    lengths = lengths.expand(B).clamp(0, S)
+    qf = q[:, 0].float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bthd->bhgt", qf, k.float()) / math.sqrt(D)
+    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    valid = valid[:, None, None, :]                      # (B, 1, 1, S)
+    s = torch.where(valid, s, NEG_INF)
+    vf = v.float()
+    states = []
+    for i in range(n_split):      # each chunk's own softmax state
+        sl = slice(i * chunk, min((i + 1) * chunk, S))
+        s_i = s[..., sl]
+        m_i = s_i.amax(-1, keepdim=True)          # NEG_INF when empty
+        p_i = torch.where(valid[..., sl], torch.exp(s_i - m_i), 0.0)
+        states.append((m_i, p_i.sum(-1, keepdim=True),
+                       torch.einsum("bhgt,bthd->bhgd", p_i, vf[:, sl])))
+    m = torch.stack([m_i for m_i, _, _ in states]).amax(0)
+    l = torch.zeros_like(m)
+    o = torch.zeros((B, Hkv, G, D), device=q.device)
+    for m_i, l_i, o_i in states:  # the merge, in chunk order
+        f = torch.exp(m_i - m)
+        l = l + l_i * f
+        o = o + o_i * f
+    out = o / l.clamp_min(1e-30)
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

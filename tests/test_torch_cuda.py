@@ -248,6 +248,82 @@ def test_decode_attention_kernel_rejects_bad_operands(cuda):
         attn_mod.decode_attention(q, k, v, lengths[:3])
 
 
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _decode_agrees(q, k, v, lengths, tol):
+    """One launch (both passes), within ``tol`` of the plain version, zeros
+    for a row of length 0, and a second call equal bit for bit."""
+    before = attn_mod.decode_attention.launches
+    got = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert attn_mod.decode_attention.launches == before + 1
+    want = decode_attention_ref(q, k, v, lengths)
+    assert got.shape == want.shape and got.isfinite().all()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, err
+    empty = torch.as_tensor(lengths, device=q.device).reshape(-1) <= 0
+    assert not got[empty.expand(q.shape[0])].any()
+    assert torch.equal(ops.decode_attention(q, k, v, lengths), got)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_decode_attention_one_long_row(cuda, dtype, tol):
+    """B = 1 and 32 768 positions: one CTA per (row, head) would walk the
+    row alone; the split spreads it over the card."""
+    q, k, v, _ = _attention_operands(1, 32_768, 4, 7, 128, dtype, cuda)
+    chunk, n_split = attn_mod.split_plan(1, 32_768, 4, _sm_count())
+    assert n_split > 1 and 4 * n_split >= _sm_count()   # fills the card
+    for length in (32_768, 32_768 - chunk + 1, 1):
+        _decode_agrees(q, k, v, torch.tensor([length], dtype=torch.int32,
+                                             device=cuda), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,Hkv,G,D", [(16, 4096, 4, 7, 128),
+                                         (3, 1000, 2, 16, 64),
+                                         (4, 600, 1, 4, 256)])
+def test_decode_attention_lengths_on_chunk_boundaries(cuda, B, S, Hkv, G, D,
+                                                      dtype, tol):
+    """Rows that end one short of, on, and one past a chunk boundary, and
+    in the last chunk; the empty chunks past them merge as nothing."""
+    q, k, v, _ = _attention_operands(B, S, Hkv, G, D, dtype, cuda)
+    chunk, n_split = attn_mod.split_plan(B, S, Hkv, _sm_count())
+    edges = [0, chunk - 1, chunk, chunk + 1, 2 * chunk, S - 1, S,
+             (n_split - 1) * chunk]
+    lengths = [min(max(x, 0), S) for x in edges]
+    lengths = (lengths * B)[:B] if B < len(lengths) else \
+        lengths + [S] * (B - len(lengths))
+    _decode_agrees(q, k, v, torch.tensor(lengths, dtype=torch.int32,
+                                         device=cuda), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_decode_attention_deepseek_moe_group(cuda, dtype, tol):
+    """deepseek-moe-16b's decode: G = 1 over Hkv = 16 heads of 128."""
+    q, k, v, lengths = _attention_operands(16, 4096, 16, 1, 128, dtype, cuda)
+    _decode_agrees(q, k, v, lengths, tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_is_deterministic(cuda):
+    """The merge adds the chunks in a fixed order: ten calls on the serving
+    shape give the same bits."""
+    q, k, v, lengths = _attention_operands(16, 4096, 4, 7, 128,
+                                           torch.bfloat16, cuda)
+    first = ops.decode_attention(q, k, v, lengths)
+    for _ in range(9):
+        assert torch.equal(ops.decode_attention(q, k, v, lengths), first)
+
+
 @pytest.mark.cuda
 def test_serving_on_card_matches_cpu(cuda):
     """A narrow qwen2-shaped decoder (G = 7, D = 64, float32) serves the
@@ -428,6 +504,38 @@ def test_flash_attention_kernel_matches_plain_version(cuda, B, Sq, Skv, Hq,
     want = flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,dtype,causal,design", [
+    (2, 300, 300, 16, 16, 80, torch.bfloat16, False, "wgmma-tma"),
+    (2, 300, 300, 16, 16, 80, torch.bfloat16, True, "wgmma-tma"),
+    (1, 640, 640, 32, 8, 128, torch.bfloat16, True, "wgmma-tma"),
+    (2, 130, 513, 8, 2, 128, torch.bfloat16, True, "wgmma-tma"),
+    (2, 513, 130, 8, 2, 64, torch.bfloat16, False, "wgmma-tma"),
+    (1, 257, 129, 4, 4, 64, torch.bfloat16, True, "wgmma-tma"),
+    (1, 384, 384, 2, 2, 256, torch.bfloat16, True, "mma.sync"),
+    (1, 200, 77, 4, 1, 32, torch.bfloat16, False, "mma.sync"),
+    (2, 300, 300, 16, 16, 80, torch.float32, False, "cuda-cores"),
+    (1, 520, 520, 32, 8, 128, torch.float32, True, "cuda-cores")])
+def test_flash_attention_each_design(cuda, B, Sq, Skv, Hq, Hkv, D, dtype,
+                                     causal, design):
+    """Each body at the widths that pick it: D = 80 over partial tiles,
+    D = 128 causal at G = 4, Sq != Skv both ways, and D = 256, D = 32 and
+    float32 on the kept mma.sync and CUDA-core bodies; one launch each,
+    within the bars of the test above, and the same bits on a second
+    call."""
+    assert flash_mod.design(D, dtype) == design
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    q, k, v = _flash_operands(B, Sq, Skv, Hq, Hkv, D, dtype, cuda, seed=D)
+    before = flash_mod.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.flash_attention.launches == before + 1
+    assert got.isfinite().all()
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal), got)
 
 
 @pytest.mark.cuda
