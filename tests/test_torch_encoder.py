@@ -186,6 +186,35 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_is_built_from_source():
     assert build.SIGNATURES["flash_attention"][0] == "flash_attention_launch"
 
 
+@pytest.mark.parametrize("D,dtype,design,padded", [
+    (64, torch.bfloat16, "wgmma-tma", 64),
+    (80, torch.bfloat16, "wgmma-tma", 80),
+    (128, torch.bfloat16, "wgmma-tma", 128),
+    (14, torch.bfloat16, "mma.sync", 16),
+    (96, torch.bfloat16, "mma.sync", 128),
+    (256, torch.bfloat16, "mma.sync", 256),
+    (80, torch.float32, "cuda-cores", 80),
+    (128, torch.float32, "cuda-cores", 128)])
+def test_kernel_design_by_dtype_and_head_dim(D, dtype, design, padded):
+    """bf16 at the configs' head dims 64, 80 and 128 takes the wgmma/TMA
+    body, other bf16 widths the mma.sync body (padded inside), float32 the
+    CUDA cores: the wrapper's ``design`` names what the C entry point's
+    dispatch launches."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kmod
+    assert kmod.design(D, dtype) == design
+    assert kmod.padded_head_dim(D) == padded
+    source = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    dispatch = " ".join(
+        source[source.index('extern "C" int flash_attention_launch'):]
+        .split())
+    wgmma = f"if (dtype == 1 && D == {D}) return launch_wgmma<{D}>"
+    # the C dispatch sends bf16 (dtype 1) at this width to the wgmma body
+    # exactly when the wrapper says bf16 takes it
+    assert (wgmma in dispatch) == (kmod.design(D, torch.bfloat16)
+                                   == "wgmma-tma")
+
+
 # ---------------------------------------------------------------------------
 # _sdpa's routing
 # ---------------------------------------------------------------------------
