@@ -514,6 +514,8 @@ def test_flash_attention_kernel_matches_plain_version(cuda, B, Sq, Skv, Hq,
     (2, 130, 513, 8, 2, 128, torch.bfloat16, True, "wgmma-tma"),
     (2, 513, 130, 8, 2, 64, torch.bfloat16, False, "wgmma-tma"),
     (1, 257, 129, 4, 4, 64, torch.bfloat16, True, "wgmma-tma"),
+    (1, 1, 1, 2, 2, 128, torch.bfloat16, True, "wgmma-tma"),
+    (1, 3, 700, 4, 4, 80, torch.bfloat16, False, "wgmma-tma"),
     (1, 384, 384, 2, 2, 256, torch.bfloat16, True, "mma.sync"),
     (1, 200, 77, 4, 1, 32, torch.bfloat16, False, "mma.sync"),
     (2, 300, 300, 16, 16, 80, torch.float32, False, "cuda-cores"),
@@ -521,7 +523,8 @@ def test_flash_attention_kernel_matches_plain_version(cuda, B, Sq, Skv, Hq,
 def test_flash_attention_each_design(cuda, B, Sq, Skv, Hq, Hkv, D, dtype,
                                      causal, design):
     """Each body at the widths that pick it: D = 80 over partial tiles,
-    D = 128 causal at G = 4, Sq != Skv both ways, and D = 256, D = 32 and
+    D = 128 causal at G = 4, Sq != Skv both ways (one query row of one key,
+    three rows of 700 keys), and D = 256, D = 32 and
     float32 on the kept mma.sync and CUDA-core bodies; one launch each,
     within the bars of the test above, and the same bits on a second
     call."""
