@@ -20,11 +20,11 @@
 //     wrapper picks the chunk from the shapes alone (B, S_max, Hkv, the SM
 //     count): as large as keeps the card full, since each CTA and the
 //     merge cost a fixed time; it never reads lengths, which stay on the
-//     device. A chunk that starts at or past
-//     lengths[b] writes the empty state m = NEG_INF (-2^30, the
-//     reference's), l = 0 and exits. Otherwise the CTA writes its partial
-//     state: m (in log2 units of the scaled scores), l and the unnormalised
-//     accumulator, float32, into a buffer the wrapper allocates.
+//     device. A chunk that starts at or past lengths[b] writes the empty
+//     state m = NEG_INF (-2^30, the reference's), l = 0 and exits.
+//     Otherwise the CTA writes its partial state: m (in log2 units of the
+//     scaled scores), l and the unnormalised accumulator, float32, into a
+//     buffer the wrapper allocates.
 //   pass 2: one CTA per (row, query head) rescales each non-empty chunk's
 //     partial by exp2(m_i - m) and adds them in chunk order, then divides
 //     by max(l, 1e-30). Fixed orders everywhere, so the result is the same
