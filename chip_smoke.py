@@ -14,24 +14,25 @@ Phases, each of which exits non-zero on failure:
    ``scaled_dot_product_attention``, one row of 32 768 positions,
    deepseek-moe-16b's G = 1 over 16 KV heads, and a sweep over groups and
    head dims; zeros at length 0 and the same bits on a second call),
-   ``ssd_scan`` (K5: the mamba2 and zamba2
-   prefill shapes in bf16 and float32, the reference tests' shapes in
-   float32, and strong decay, within 5e-5 in float32 and 2e-2 in bf16 of
-   its plain version, atol and rtol) and ``flash_attention`` (K4: the
-   hubert-xlarge and pixtral-12b shapes in bf16 beside
-   ``scaled_dot_product_attention``, one layer of the reference's
-   prefill_32k encoder cell, the reference tests' shapes in float32 both
-   causal and not, gemma's head dim and a ragged length of 300; within
-   2e-5 in float32 and 2e-2 in bf16), each K3 and K4 row naming the design
-   that ran (``split-kv``, ``wgmma-tma``, ``mma.sync`` or ``cuda-cores``)
-   and its kernels' registers and spills from ``-Xptxas -v``,
-   ``grouped_matmul`` (K6: deepseek-
-   moe-16b's decode step, 16 tokens x top-6 over 64 experts at blk_m 16,
-   and a 2048-token prompt at blk_m 128, gate/up 2048 -> 1408 and down
-   1408 -> 2048 in bf16 beside ``torch._grouped_mm`` and the capacity
-   buffer's einsums, each also at the other blk_m, and the reference
-   tests' shapes in float32; within 1e-4 of the plain version's scale in
-   float32 and 2e-2 in bf16) and ``fused_rmsnorm`` (K7: the reference
+   ``ssd_scan`` (K5, three passes: the mamba2 and zamba2 prefill shapes
+   in bf16 and float32, the reference tests' shapes in float32, and
+   strong decay, within 5e-5 in float32 and 2e-2 in bf16 of its plain
+   version, atol and rtol, and the same bits on a second call) and
+   ``flash_attention`` (K4: the hubert-xlarge and pixtral-12b shapes in
+   bf16 beside ``scaled_dot_product_attention``, one layer of the
+   reference's prefill_32k encoder cell, the reference tests' shapes in
+   float32 both causal and not, gemma's head dim and a ragged length of
+   300; within 2e-5 in float32 and 2e-2 in bf16), each K3, K4, K5 and K6
+   row naming the design that ran (``split-kv``, ``wgmma-tma``,
+   ``tensor-cores``, ``mma.sync`` or ``cuda-cores``) and its kernels'
+   registers and spills from ``-Xptxas -v``, ``grouped_matmul`` (K6:
+   deepseek-moe-16b's decode step, 16 tokens x top-6 over 64 experts at
+   blk_m 16 (and 128, its time only), and a 2048-token prompt at blk_m
+   128 and 64, gate/up 2048 -> 1408 and down 1408 -> 2048 in bf16 beside
+   ``torch._grouped_mm`` and the capacity buffer's einsums, and the
+   reference tests' shapes in float32; within 1e-4 of the plain version's
+   scale in float32 and 2e-2 in bf16, padding tiles zero, the same bits on
+   a second call) and ``fused_rmsnorm`` (K7: the reference
    tests' shapes and 16 x 4096 rows of 2048 beside ``F.rms_norm``; 1e-5 in
    float32, one bf16 ulp of each element in bf16);
 4. baseline path: ``SweepEngine``/``run_sweep`` over a baseline-controller
@@ -326,10 +327,36 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
 PTXAS: dict = {}
 
 
+def template_args(rest: str) -> list:
+    """The template arguments at the head of the rest of a mangled name
+    (``I...E``): integers (``Li64E``), float and double, and class types
+    (``13__nv_bfloat16``)."""
+    import re
+    args = []
+    if not rest.startswith("I"):
+        return args
+    j = 1
+    while j < len(rest) and rest[j] != "E":
+        m = re.match(r"Li(\d+)E", rest[j:])
+        d = re.match(r"\d+", rest[j:])
+        if m:
+            args.append(m.group(1))
+            j += m.end()
+        elif rest[j] in "fd":
+            args.append({"f": "float", "d": "double"}[rest[j]])
+            j += 1
+        elif d:
+            args.append(rest[j + d.end():j + d.end() + int(d.group())])
+            j += d.end() + int(d.group())
+        else:
+            break
+    return args
+
+
 def ptxas_table(log: str) -> dict:
     """Each entry function of a ``-Xptxas -v`` log: its registers and spill
-    bytes, under its name and integer template arguments (as
-    ``flash_wgmma_kernel<80>``)."""
+    bytes, under its name and template arguments (as
+    ``flash_wgmma_kernel<80>`` or ``ssd_state_kernel<float,64,128>``)."""
     import re
     table, name = {}, None
     for line in log.splitlines():
@@ -343,10 +370,7 @@ def ptxas_table(log: str) -> dict:
                 ident = mangled[j:j + int(d.group())] if d else ""
                 if ident.endswith("_kernel") \
                         and re.fullmatch(r"[A-Za-z_]\w*", ident):
-                    rest = mangled[j + len(ident):]
-                    args = re.findall(r"Li(\d+)E",
-                                      re.match(r"I?((?:Li\d+E)*)",
-                                               rest).group(1))
+                    args = template_args(mangled[j + len(ident):])
                     name = ident + (f"<{','.join(args)}>" if args else "")
                     break
             table[name] = {}
@@ -588,6 +612,15 @@ def check_ssd_scan(B: int, S: int, H: int, P: int, G: int, N: int,
             fail(f"{label}: {key} differs from the plain version by "
                  f"{float(err.max())} (bar {tol} + {tol}|plain|)")
     out["max_abs_err"] = max(out["max_abs_err_y"], out["max_abs_err_state"])
+    again = kmod.ssd_scan(*ops, chunk=chunk)
+    if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+        fail(f"{label}: a second call is not bit for bit the first")
+    out["design"] = design = kmod.design(dtype, P, N, chunk)
+    ctype = {"float32": "float", "bfloat16": "__nv_bfloat16"}[name]
+    tc, t = (("_tc", f"<{N}>") if design == "tensor-cores"
+             else ("", f"<{ctype},{P},{N}>"))
+    out["ptxas"] = ptxas_of(f"ssd_state{tc}_kernel{t}", "ssd_pass_kernel",
+                            f"ssd_output{tc}_kernel{t}")
     call = lambda: kmod.ssd_scan(*ops, chunk=chunk)  # noqa: E731
     out["ms"] = device_ms(call, n=20, warmup=3)
     if not timed:
@@ -770,9 +803,15 @@ def check_grouped_matmul(n_tok: int, top_k: int, E: int, K: int, N: int,
              f"scale (bar {GMM_BARS[name]})")
     if got.view(-1, blk, N)[te < 0].any():
         fail(f"{label}: a tile past the last group is not zero")
+    if not torch.equal(kmod.grouped_matmul(lhs, rhs, te, blk_m=blk), got):
+        fail(f"{label}: a second call is not bit for bit the first")
+    design = kmod.design(blk, dtype)
+    fn = {"wgmma-tma": "gmm_wgmma_kernel", "mma.sync": "gmm_bf16_kernel",
+          "cuda-cores": "gmm_f32_kernel"}[design]
     out = {"tokens": n_tok, "top_k": top_k, "E": E, "K": K, "N": N,
            "blk_m": blk, "rows": srt.rows, "dtype": name,
-           "max_abs_err": err, "max_rel_err": rel}
+           "max_abs_err": err, "max_rel_err": rel, "design": design,
+           "ptxas": ptxas_of(f"{fn}<{blk}>")}
     call = lambda: kmod.grouped_matmul(lhs, rhs, te, blk_m=blk)  # noqa: E731
     out["ms"] = device_ms(call, n=30, warmup=3)
     if not timed:
@@ -2025,6 +2064,15 @@ def main() -> int:
                                dtype, a_log_max=math.log(16), timed=True)
             ssd_rows[(arch, r["dtype"])] = r
             print("kernel ssd_scan " + json.dumps(r), flush=True)
+    # a one-chunk prompt (256 tokens: the third pass splits each chunk's
+    # rows over CTAs) at both architectures
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        c = get_config(arch)
+        heads = c.ssm.expand * c.d_model // c.ssm.head_dim
+        r = check_ssd_scan(1, c.ssm.chunk, heads, c.ssm.head_dim,
+                           c.ssm.n_groups, c.ssm.d_state, c.ssm.chunk,
+                           torch.bfloat16, a_log_max=math.log(16))
+        print("kernel ssd_scan one chunk " + json.dumps(r), flush=True)
     for shape in SSD_TEST_SHAPES:
         r = check_ssd_scan(*shape, torch.float32)
         print("kernel ssd_scan " + json.dumps(r), flush=True)
@@ -2059,11 +2107,12 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             r = check_flash_attention(*shape, dtype, causal)
             print("kernel flash_attention " + json.dumps(r), flush=True)
-    # K6 at deepseek-moe-16b's shapes: a decode step's 16 tokens and a
-    # 2048-token prompt, top-6 over 64 experts, each at the path's blk_m
-    # (timed beside the plain version, torch._grouped_mm and the einsums)
-    # and at the other blk_m (its time only); gate/up 2048 -> 1408, down
-    # 1408 -> 2048; then the reference tests' shapes in float32
+    # K6 at deepseek-moe-16b's shapes: a decode step's 16 tokens at the
+    # path's blk_m (timed beside the plain version, torch._grouped_mm and
+    # the einsums) and at blk_m 128 (its time only), and a 2048-token
+    # prompt, top-6 over 64 experts, timed at both blk_m of the wgmma body
+    # (128, the path's, and 64); gate/up 2048 -> 1408, down 1408 -> 2048;
+    # then the reference tests' shapes in float32
     e = moe_cfg.moe
     gmm_rows = {}
     for key, n_tok in (("decode", SERVE_SLOTS), ("prefill", SERVE_PROMPTS[1])):
@@ -2074,10 +2123,10 @@ def main() -> int:
                                      torch.bfloat16, timed=True)
             gmm_rows[(key, K)] = r
             print(f"kernel grouped_matmul {key} " + json.dumps(r), flush=True)
-            r = check_grouped_matmul(n_tok, e.top_k, e.n_routed, K, N,
-                                     64 if blk == 128 else 128,
-                                     torch.bfloat16)
-            print(f"kernel grouped_matmul {key} other blk_m "
+            other = 64 if blk == 128 else 128
+            r = check_grouped_matmul(n_tok, e.top_k, e.n_routed, K, N, other,
+                                     torch.bfloat16, timed=key == "prefill")
+            print(f"kernel grouped_matmul {key} blk_m {other} "
                   + json.dumps(r), flush=True)
     r = check_grouped_matmul(SERVE_SLOTS, e.top_k, e.n_routed,
                              moe_cfg.d_model, e.d_expert, 16, torch.float32)
@@ -2259,6 +2308,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:74",
         "launches": ssm_path["launches"]["ssd_scan"],
+        "design": ssd["design"],
         "max_abs_err": ssd["max_abs_err"],
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
@@ -2278,6 +2328,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/grouped_matmul.cu",
         "replaces": "src/repro/kernels/grouped_matmul.py:44",
         "launches": moe_path["launches"]["grouped_matmul"],
+        "design": gmm["design"],
         "max_abs_err": max(r["max_abs_err"] for r in gmm_rows.values()),
         "ms": gmm["ms"], "plain_ms": gmm["plain_ms"],
         "bound_ms": gmm["bound_ms"], "bound_by": gmm["bound_by"],

@@ -3,8 +3,9 @@
 Each source under ``repro_torch/csrc/`` is compiled by ``nvcc`` at first
 use into a shared library with a plain C interface, under
 ``build/repro_torch_kernels/`` in the checkout, and loaded with
-:mod:`ctypes`. A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+:mod:`ctypes`. A library's file name carries a hash of its source, of the
+headers in ``csrc/`` and of the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -47,10 +48,10 @@ SIGNATURES = {
                         [_C] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 5
                         + [_C]),
     "ssd_scan": ("ssd_scan_launch",
-                 [_C] * 7 + [ctypes.c_int64, ctypes.c_int64]
+                 [_C] * 9 + [ctypes.c_int64, ctypes.c_int64]
                  + [ctypes.c_int] * 6 + [_C]),
     "grouped_matmul": ("grouped_matmul_launch",
-                       [_C] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 4
+                       [_C] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 5
                        + [_C]),
     "rmsnorm": ("fused_rmsnorm_launch",
                 [_C] * 5 + [ctypes.c_int64, ctypes.c_int, _D, ctypes.c_int,
@@ -80,11 +81,14 @@ def nvcc_command(nvcc: str, source: Path, out: Path) -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, keyed by its content and flags."""
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` is built, keyed by its content, every
+    header in ``csrc/`` (a source may include any of them) and the
+    flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

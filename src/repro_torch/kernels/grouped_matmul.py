@@ -7,8 +7,11 @@ Replaces the reference's Pallas kernel
 expert's group padded to a multiple of ``blk_m`` rows, with float32 sums
 and the output in lhs's dtype. Every MoE layer's expert FFN launches it
 three times (gate, up and down) on the kernel route of
-:func:`repro_torch.models.moe.moe_apply`. The kernel takes CUDA tensors
-only; :func:`repro_torch.kernels.ops.grouped_matmul` routes CPU tensors to
+:func:`repro_torch.models.moe.moe_apply`. In bfloat16 at the M-tiles that
+prompts take (``blk_m`` 64 and 128) a persistent, warp-specialised body
+runs ``wgmma`` fed by TMA loads; at the decode tiles (16 and 32) a body on
+``mma.sync``; float32 runs on the CUDA cores (:func:`design`). The kernel
+takes CUDA tensors only; :func:`repro_torch.kernels.ops.grouped_matmul` routes CPU tensors to
 the plain version (:func:`repro_torch.kernels.ref.grouped_matmul_ref`).
 
 :func:`sort_assignments` builds the sorted buffer: sized statically for
@@ -31,6 +34,18 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the M-tiles the kernel is built for
 BLOCK_MS = (16, 32, 64, 128)
+#: the bfloat16 M-tiles that take the wgmma/TMA body
+WGMMA_BLOCK_MS = (64, 128)
+
+
+def design(blk_m: int, dtype: torch.dtype) -> str:
+    """Which of the kernel's bodies runs for M-tiles of ``blk_m`` rows in
+    ``dtype``: ``"wgmma-tma"`` (bfloat16 at ``blk_m`` in
+    :data:`WGMMA_BLOCK_MS`), ``"mma.sync"`` (bfloat16 otherwise) or
+    ``"cuda-cores"`` (float32)."""
+    if dtype == torch.float32:
+        return "cuda-cores"
+    return "wgmma-tma" if blk_m in WGMMA_BLOCK_MS else "mma.sync"
 
 
 def _check(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert: torch.Tensor,
@@ -77,7 +92,8 @@ def _launch(lhs: torch.Tensor, rhs: torch.Tensor, tile_expert: torch.Tensor,
         stream = torch.cuda.current_stream(lhs.device).cuda_stream
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         rc = fn(ptr(lhs), ptr(rhs), ptr(tile_expert), ptr(out), M, K, N,
-                blk_m, _DTYPES[lhs.dtype], ctypes.c_void_p(stream))
+                rhs.shape[0], blk_m, _DTYPES[lhs.dtype],
+                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA "
                            f"error {rc}")

@@ -221,6 +221,84 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.to(x.dtype), state
 
 
+#: rows of K5's output tiles: the CUDA kernel's third pass takes one tile
+#: of a chunk per CTA
+SSD_ROW_TILE = 64
+
+
+def ssd_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor,
+                         a_log: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, chunk: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's three-pass chunked algorithm in plain torch, float32
+    throughout: the function of :func:`ssd_scan_ref`, computed as the CUDA
+    kernel computes it. Nothing on the serving path calls it; the tests
+    hold it against :func:`ssd_scan_ref` and the reference's Pallas
+    kernel. Shapes as :func:`ssd_scan_ref`.
+
+    1. Chunk states: each chunk's cumulative log-decay ``cum`` (summed in
+       position order) and its own state ``sum_j (dt_j x_j) (x) (B_j
+       exp(cum_last - cum_j))``, from a zero state.
+    2. State passing, chunk by chunk: the state entering chunk ``c`` is
+       ``exp(cum_last of c - 1)`` times the one entering ``c - 1`` plus
+       that chunk's own state; after the last chunk it is the final state.
+    3. Chunk outputs, one tile of :data:`SSD_ROW_TILE` rows at a time: the
+       readout ``exp(cum_i) C_i . S_c``, then for each tile J at or before
+       the row tile the scores ``C B^T``, decayed by ``exp(cum_i -
+       cum_j)`` where ``j <= i`` only (above the diagonal the exponent may
+       overflow), times ``dt x``.
+    """
+    bsz, seq, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if seq % chunk:
+        raise ValueError(f"sequence length {seq} is not a multiple of the "
+                         f"SSD chunk {chunk}")
+    nc, rep, t = seq // chunk, h // g, SSD_ROW_TILE
+    a = -torch.exp(a_log.float())
+    dtf = dt.float().reshape(bsz, nc, chunk, h)
+    xdt = (x.float() * dt.float()[..., None]).reshape(bsz, nc, chunk, h, p)
+    bh = b.float().repeat_interleave(rep, dim=2).reshape(bsz, nc, chunk, h, n)
+    ch = c.float().repeat_interleave(rep, dim=2).reshape(bsz, nc, chunk, h, n)
+
+    # 1. chunk states
+    cum = torch.cumsum(dtf * a, dim=2)                       # (B,NC,Q,H)
+    last = cum[:, :, -1]                                     # (B,NC,H)
+    bdecay = bh * torch.exp(last[:, :, None] - cum)[..., None]
+    local = torch.einsum("bcqhp,bcqhn->bchpn", xdt, bdecay)
+
+    # 2. state passing, in chunk order
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    entering = []
+    for i in range(nc):
+        entering.append(state)
+        state = torch.exp(last[:, i])[..., None, None] * state + local[:, i]
+
+    # 3. chunk outputs, by tiles of rows
+    y = torch.empty((bsz, nc, chunk, h, p), dtype=torch.float32,
+                    device=x.device)
+    for i in range(nc):
+        for i0 in range(0, chunk, t):
+            rows = slice(i0, min(i0 + t, chunk))
+            cum_i = cum[:, i, rows]                          # (B,R,H)
+            acc = torch.einsum("brhn,bhpn->brhp", ch[:, i, rows],
+                               entering[i]) * torch.exp(cum_i)[..., None]
+            for j0 in range(0, i0 + 1, t):
+                cols = slice(j0, min(j0 + t, chunk))
+                scores = torch.einsum("brhn,bkhn->bhrk", ch[:, i, rows],
+                                      bh[:, i, cols])
+                li = cum_i.permute(0, 2, 1)[..., :, None] \
+                    - cum[:, i, cols].permute(0, 2, 1)[..., None, :]
+                ii = torch.arange(rows.start, rows.stop)[:, None]
+                jj = torch.arange(cols.start, cols.stop)[None, :]
+                lower = (jj <= ii).to(x.device)
+                decay = torch.exp(torch.where(lower, li, 0.0))
+                m = torch.where(lower, scores * decay, 0.0)
+                acc = acc + torch.einsum("bhrk,bkhp->brhp", m,
+                                         xdt[:, i, cols])
+            y[:, i, rows] = acc
+    return y.reshape(bsz, seq, h, p).to(x.dtype), state
+
+
 def grouped_matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor,
                        tile_expert: torch.Tensor, blk_m: int
                        ) -> torch.Tensor:

@@ -413,6 +413,37 @@ def test_ssd_scan_kernel_under_strong_decay(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,dt_max", [
+    (1, 2048, 80, 64, 1, 64, 256, 1.0),   # zamba2-2.7b, strong decay
+    (1, 4096, 8, 64, 1, 128, 256, 0.1),   # 16 chunks
+    (1, 256, 8, 64, 1, 128, 16, 0.1),     # 16 chunks of 16
+    (1, 256, 64, 64, 1, 128, 256, 1.0),   # a one-chunk prompt
+    (2, 300, 4, 64, 2, 32, 100, 0.1),     # ragged tiles, N = 32
+    (1, 320, 4, 32, 1, 64, 160, 0.1)])    # the CUDA-core body in bf16
+def test_ssd_scan_each_design(cuda, B, S, H, P, G, N, chunk, dt_max, dtype,
+                              tol):
+    """Each body (``design``: tensor cores for bf16 at P = 64 and N = 32,
+    64 or 128, the CUDA cores otherwise) within ``tol`` of the plain
+    version, finite under strong decay (A up to 16, dt up to 1), and a
+    second call equal bit for bit: the states pass from chunk to chunk in
+    a fixed order, with no atomics."""
+    args = _ssd_operands(B, S, H, P, G, N, dtype, cuda,
+                         a_log_max=math.log(16), dt_max=dt_max)
+    tc = dtype == torch.bfloat16 and P == 64 and N in (32, 64, 128)
+    assert ssd_mod.design(dtype, P, N, chunk) == ("tensor-cores" if tc
+                                                  else "cuda-cores")
+    before = ssd_mod.ssd_scan.launches
+    got = ssd_mod.ssd_scan(*args, chunk=chunk)
+    again = ssd_mod.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.ssd_scan.launches == before + 2
+    _ssd_agrees(got, ssd_scan_ref(*args, chunk), dtype, tol)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
 def test_ssd_scan_kernel_rejects_bad_operands(cuda):
     x, dt, a_log, b, c = _ssd_operands(1, 64, 4, 64, 2, 128, torch.float32,
                                        cuda)
@@ -647,6 +678,47 @@ def test_grouped_matmul_kernel_matches_plain_version(cuda, n_tok, e, k, n,
                 / want.float().abs().max())
     assert err <= tol, err
     assert not got.view(-1, blk, n)[srt.tile_expert < 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk", [64, 128])
+@pytest.mark.parametrize("n_tok,e,k,n", [
+    (400, 5, 144, 272),                  # a K tail and a column tail
+    (2048 * 6, 64, 2048, 1408),          # deepseek-moe's prompt: gate/up
+    (2048 * 6, 64, 1408, 2048)])         # and down
+def test_grouped_matmul_wgmma_body(cuda, n_tok, e, k, n, blk):
+    """The wgmma/TMA body (bf16 at blk_m 64 and 128): K = 144 reads a
+    zero-filled tail of its last 64-deep stage, within the expert's slab;
+    N = 272 ends in a partial tile whose columns past N are not stored;
+    a fifth of the assignments dropped leaves tiles of -1 past the last
+    group, which must come out zero. Within the bf16 bar of the plain
+    version's scale, and a second call equal bit for bit."""
+    assert gmm_mod.design(blk, torch.bfloat16) == "wgmma-tma"
+    lhs, rhs, srt = _gmm_operands(n_tok, e, k, n, blk, torch.bfloat16, cuda)
+    assert bool((srt.tile_expert < 0).any())
+    got = gmm_mod.grouped_matmul(lhs, rhs, srt.tile_expert, blk_m=blk)
+    again = gmm_mod.grouped_matmul(lhs, rhs, srt.tile_expert, blk_m=blk)
+    torch.cuda.synchronize()
+    want = grouped_matmul_ref(lhs, rhs, srt.tile_expert, blk)
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert err <= 2e-2, err
+    assert not got.view(-1, blk, n)[srt.tile_expert < 0].any()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk,dtype", [(16, torch.bfloat16),
+                                       (32, torch.bfloat16),
+                                       (64, torch.float32)])
+def test_grouped_matmul_is_deterministic(cuda, blk, dtype):
+    """The mma.sync and CUDA-core bodies give the same bits on a second
+    call too."""
+    lhs, rhs, srt = _gmm_operands(300, 8, 144, 272, blk, dtype, cuda)
+    first = gmm_mod.grouped_matmul(lhs, rhs, srt.tile_expert, blk_m=blk)
+    second = gmm_mod.grouped_matmul(lhs, rhs, srt.tile_expert, blk_m=blk)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

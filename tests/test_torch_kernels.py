@@ -138,3 +138,22 @@ def test_nvcc_command_targets_hopper_without_fma_contraction(tmp_path):
     assert lib.parent == build.BUILD_DIR
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
 
+
+
+def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """A source may include any header in ``csrc/`` (``hopper.cuh``: TMA,
+    mbarriers, wgmma), so the library's name hashes every header with the
+    source: a changed header means a new library, built afresh."""
+    for f in ("grouped_matmul.cu", "hopper.cuh"):
+        (tmp_path / f).write_bytes((build.CSRC_DIR / f).read_bytes())
+    assert '#include "hopper.cuh"' in (tmp_path / "grouped_matmul.cu"
+                                       ).read_text()
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    before = build.library_path("grouped_matmul")
+    assert build.library_path("grouped_matmul") == before   # stable
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    changed = build.library_path("grouped_matmul")
+    assert changed != before and changed.parent == build.BUILD_DIR
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert build.library_path("grouped_matmul") != changed

@@ -61,6 +61,7 @@ from repro.models import moe as ref_moe  # noqa: E402
 from repro_torch.interop import (_flatten, load_reference_params,  # noqa: E402
                                  model_config_from_dict,
                                  model_params_from_reference)
+from repro_torch.kernels import grouped_matmul as gmm_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     BLOCK_MS, sort_assignments)
@@ -346,6 +347,32 @@ def test_top_k_resolves_ties_as_jax():
     got_w, got_i = moe.top_k(torch.from_numpy(probs), 6)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
+
+
+@pytest.mark.parametrize("blk", BLOCK_MS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_design_names_the_c_dispatch(dtype, blk):
+    """bf16 at blk_m 64 and 128 (prompts) takes the wgmma/TMA body, at 16
+    and 32 (decode, short prompts) the mma.sync body, float32 the CUDA
+    cores: the wrapper's ``design`` names what the C entry point's
+    dispatch launches."""
+    from repro_torch.kernels import build
+    name = gmm_mod.design(blk, dtype)
+    want = ("cuda-cores" if dtype == torch.float32 else
+            "wgmma-tma" if blk in (64, 128) else "mma.sync")
+    assert name == want
+    source = (build.CSRC_DIR / "grouped_matmul.cu").read_text()
+    dispatch = " ".join(
+        source[source.index('extern "C" int grouped_matmul_launch'):]
+        .split())
+    code = 1 if dtype == torch.bfloat16 else 0
+    for body, launcher in (("wgmma-tma", "launch_wgmma"),
+                           ("mma.sync", "launch_mma")):
+        branch = (f"if (dtype == {code} && blk_m == {blk}) "
+                  f"return {launcher}<{blk}>")
+        assert (branch in dispatch) == (name == body)
+    # float32 falls through to the CUDA-core switch, which has every blk_m
+    assert f"case {blk}: return launch_f32<{blk}>" in dispatch
 
 
 def test_block_m_follows_the_mean_group():
