@@ -26,9 +26,8 @@
 //      sums it on the CPU, so the exponents here and in the plain version
 //      (kernels/ref.py::ssd_scan_ref) are the same floats; it goes to the
 //      `cum` scratch (B, H, S). Then the chunk's own state
-//      sum_j (dt_j x_j) (x) (B_j exp(cum_last - cum_j)), streamed in tiles
-//      of 64 positions, into the `states` scratch (B, H, chunks, N, P),
-//      transposed, as pass 3 reads it.
+//      sum_j (dt_j x_j) (x) (B_j exp(cum_last - cum_j)), in tiles of 64
+//      positions, into the `states` scratch (B, H, chunks, ., .).
 //   2. state passing, one thread per (b, h, state element), chunk by chunk:
 //      S_c = exp(cum_last of c - 1) S_{c-1} + local_{c-1}, written over
 //      local_c (the state that enters chunk c) and, after the last chunk,
@@ -40,21 +39,32 @@
 //      dt x of J. A one-chunk prompt of 256 tokens still gives 4 CTAs a
 //      head.
 // The decay exp(cum_i - cum_j) is formed only where i >= j: above the
-// diagonal it overflows and inf * 0 is NaN. The scores run on the tensor
-// cores in bfloat16 (mma.sync m16n8k16: products of bfloat16 values are
-// exact, the sums float32) and on the CUDA cores from 4 x 4 register tiles
-// for float32 inputs. Every product with a float32 operand (the decayed
-// scores, dt x, B times the decay, the carried state) runs on the CUDA
-// cores in float32 (fmaf), from register tiles of 4 x P/16 (P/16 x N/16 for
-// the states) fed by 16-byte shared-memory loads; nothing is rounded to
-// TF32 or bfloat16. Tiles of B and x are loaded 16 bytes a thread into
-// registers while the tile before them computes. B and C are read from
-// their group's rows; nothing is expanded per head. The unit is built with
-// --fmad=false, which keeps the cumulative sum and the state passing's
-// multiply and add plain; the products use fmaf. The chunk length is a
-// runtime value (any Q that divides S: rows past Q in a tile are zero and
-// never stored); P and N are template values (P in 16, 32, 64; N in 16,
-// 32, 64, 128).
+// diagonal it overflows and inf * 0 is NaN. Tiles of B and x are loaded 16
+// bytes a thread into registers while the tile before them computes. B and
+// C are read from their group's rows; nothing is expanded per head. The
+// unit is built with --fmad=false, which keeps the cumulative sum and the
+// state passing's multiply and add plain. The chunk length is a runtime
+// value (any Q that divides S: rows past Q in a tile are zero and never
+// stored). Two bodies run these passes, chosen in ssd_scan_launch (the
+// wrapper's kernels/ssd_scan.py::design names them):
+//
+// bfloat16 at P = 64 and N = 32, 64 or 128 (mamba2's and zamba2's shapes):
+// every product on the tensor cores, mma.sync m16n8k16. Products of
+// bfloat16 values are exact in float32, so the scores C B^T run as they
+// are; a float32 operand (x scaled by dt and the decay, the decayed and
+// dt-scaled scores, the carried state) is split into three bfloat16 parts
+// whose sum is the value to 2^-24 (split3), and the three products are
+// summed in float32: float32 accuracy, with no single rounding of such an
+// operand to bfloat16 or TF32. The decayed scores go from the score
+// accumulators to the A fragments of the next product in registers; the
+// two warps of a row block split each product's depth and add their
+// partial sums once, at the end.
+//
+// every other shape, and float32: the products with a float32 operand on
+// the CUDA cores in float32 (fmaf), from register tiles of 4 x P/16 (P/16
+// x N/16 for the states) fed by 16-byte shared-memory loads; the scores on
+// mma.sync in bfloat16 and on the CUDA cores in float32. P and N are
+// template values (P in 16, 32, 64; N in 16, 32, 64, 128).
 #include <cstdint>
 #include <type_traits>
 
@@ -183,13 +193,35 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-
 // Q rounded up to whole tiles: pass 3's dt and cum arrays, so that a read
 // at a position past Q (in a branch whose value is discarded) stays inside
 // shared memory.
 __host__ __device__ constexpr size_t padded(int Q) {
   return static_cast<size_t>((Q + kT - 1) / kT) * kT;
 }
+
+// The chunk's cumulative log-decay cum[t] = sum_{u <= t} dt[u] a, added by
+// the calling thread in position order, as torch.cumsum adds on the CPU.
+__device__ __forceinline__ void chunk_cum(const float* dtv, float* cum,
+                                          float a, int Q) {
+  float run = 0.f;
+  for (int t0 = 0; t0 < Q; t0 += 8) {
+    float da[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) da[u] = t0 + u < Q ? dtv[t0 + u] * a : 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (t0 + u < Q) {
+        run = run + da[u];
+        cum[t0 + u] = run;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// every other shape, and float32: the float32 products on the CUDA cores
+// ---------------------------------------------------------------------------
 
 template <typename T, int P, int N>
 struct Smem {
@@ -238,21 +270,7 @@ ssd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   for (int t = tid; t < Q; t += kThreads) dtv[t] = dth[t * H];
   __syncthreads();
-  if (tid == 0) {  // in position order, as torch.cumsum adds on the CPU
-    float run = 0.f;
-    for (int t0 = 0; t0 < Q; t0 += 8) {
-      float da[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) da[u] = t0 + u < Q ? dtv[t0 + u] * a : 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        if (t0 + u < Q) {
-          run = run + da[u];
-          cum[t0 + u] = run;
-        }
-      }
-    }
-  }
+  if (tid == 0) chunk_cum(dtv, cum, a, Q);
   __syncthreads();
   const float last = cum[Q - 1];
   float* cum_h = cum_out + (b * H + h) * S + c0;
@@ -667,21 +685,7 @@ ssd_state_tc_kernel(const __nv_bfloat16* __restrict__ x,
   xnext.fetch(xh, xrow, min(kT, Q));
   for (int t = tid; t < Q; t += kThreads) dtv[t] = dth[t * H];
   __syncthreads();
-  if (tid == 0) {  // in position order, as torch.cumsum adds on the CPU
-    float run = 0.f;
-    for (int t0 = 0; t0 < Q; t0 += 8) {
-      float da[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) da[u] = t0 + u < Q ? dtv[t0 + u] * a : 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        if (t0 + u < Q) {
-          run = run + da[u];
-          cum[t0 + u] = run;
-        }
-      }
-    }
-  }
+  if (tid == 0) chunk_cum(dtv, cum, a, Q);
   __syncthreads();
   const float last = cum[Q - 1];
   float* cum_h = cum_out + (b * H + h) * S + c0;
