@@ -1107,7 +1107,7 @@ int launch_p(const void* x, const void* dt, const void* a_log, const void* b,
 // Plain C entry point for ctypes. Every pointer is a device pointer to a
 // contiguous buffer aligned to 16 bytes; dtype is 0 for float32 and 1 for
 // bfloat16 (x, b, c, y); dt, a_log, the final state and the two scratch
-// buffers are float32: cum (B, H, S) and states (B, H, S / Q, N, P), which
+// buffers are float32: cum (B, H, S) and states (B, H, S / Q, P N), which
 // the call overwrites; Q >= 1 divides S, G divides H, B, H and the chunk
 // count are at most 65535, P is 16, 32 or 64 and N 16, 32, 64 or 128 (the
 // wrapper checks all of these). Launches the three passes on `stream`

@@ -121,10 +121,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     y = torch.empty_like(x)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     # the passes' scratch: each chunk's cumulative log-decay, and each
-    # chunk's own state (transposed), overwritten by the state that enters
-    # it
+    # chunk's own state (P x N, in the order its body keeps it),
+    # overwritten by the state that enters the chunk
     cum = torch.empty((B, H, S), dtype=torch.float32, device=x.device)
-    states = torch.empty((B, H, S // chunk, N, P), dtype=torch.float32,
+    states = torch.empty((B, H, S // chunk, P * N), dtype=torch.float32,
                          device=x.device)
     fn = build.load("ssd_scan").ssd_scan_launch
     with torch.cuda.device(x.device):
