@@ -25,22 +25,23 @@
 // bfloat16 at blk_m 64 and 128 (prompts of more than 341 tokens at top-6
 // over 64 experts): wgmma fed by TMA, warp-specialised and persistent. One
 // CTA per SM walks the output tiles (128 x 128 at blk_m 128, 64 x 256 at
-// blk_m 64) in groups of eight M-tiles, N-tile by N-tile, so the tiles in
+// blk_m 64) in groups of four M-tiles, N-tile by N-tile, so the tiles in
 // flight at once belong to a few experts and each expert's K x N slab
 // comes from HBM about once and from L2 after that. 384 threads: a
 // producer warpgroup, one lane of which issues the TMA loads of 64-deep
 // stages (lhs: BM rows x 64, K-major; rhs[e]: 64 rows x BN, read in place
 // as (K, N) row-major through a 3-D tensor map over (E, K, N), so a K
-// tail reads zeros and never the next expert's rows) into a ring of six
-// (five at blk_m 64) stages with full and empty mbarriers, across tile
+// tail reads zeros and never the next expert's rows) into a ring of five
+// (four at blk_m 64) stages with full and empty mbarriers, across tile
 // boundaries; and two consumer warpgroups, each owning 64 rows x 128
 // columns of the tile, which run wgmma m64n128k16 (bf16 in, float32 sums)
 // from the 128-byte-swizzled stages, B read MN-major through the
 // descriptor's transpose bit, one product group in flight while the next
 // stage is waited for. setmaxnreg moves registers from the producer to the
-// consumers. The epilogue rounds each sum once and stores it from
-// registers while the producer already loads the next tile's stages. A
-// tile whose expert is -1 is stored as zeros and loads nothing.
+// consumers. The epilogue rounds each sum once into a tile in shared
+// memory, which leaves in coalesced 16-byte stores, while the producer
+// already loads the next tile's stages. A tile whose expert is -1 is
+// stored as zeros and loads nothing.
 //
 // bfloat16 at blk_m 16 and 32 (decode and short prompts): one CTA per
 // (M-tile, 128 output columns) reads its expert id from the tile table and
@@ -263,6 +264,12 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kWgBK = 64;          // depth of a stage: one 128-byte row
 constexpr int kBox = 64 * 128;     // bytes of one 64 x 64 box of rhs
 
+// Named barrier `id` (1 and 2 here, one per consumer warpgroup; 0 is
+// __syncthreads) over n threads.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
 // The CTA's output tile and ring for M-tiles of BM rows: 128 x 128 (the
 // two consumers one above the other) or 64 x 256 (side by side), each
 // consumer 64 x 128; a stage is the lhs box (BM rows of 128 bytes) and
@@ -273,18 +280,24 @@ struct WgCfg {
   static constexpr int BN = BM == 128 ? 128 : 256;
   static constexpr int A_BYTES = BM * 128;
   static constexpr int STAGE = A_BYTES + (BN / 64) * kBox;
-  static constexpr int NST = BM == 128 ? 6 : 5;
-  static constexpr size_t SMEM = static_cast<size_t>(NST) * STAGE + 1024;
+  static constexpr int NST = BM == 128 ? 5 : 4;
+  // after the ring, each consumer's 64 x 128 output tile in bf16, rows
+  // kLdo apart (+8: the fragment writes meet no bank conflicts)
+  static constexpr int kLdo = 128 + 8;
+  static constexpr int OUT_BYTES = 2 * 64 * kLdo * 2;
+  static constexpr size_t SMEM =
+      static_cast<size_t>(NST) * STAGE + OUT_BYTES + 1024;
   static_assert(BM == 64 || BM == 128, "the wgmma body takes blk_m 64, 128");
   static_assert(SMEM <= 232448 - 1024, "the ring fits in shared memory");
 };
 
 // Tile t of the persistent walk: M-tiles in groups of kGroupM, each
 // group's tiles N-tile by N-tile, M-tile by M-tile within an N-tile, so
-// the 132 tiles in flight read the weights of about four experts (an
-// expert owns about two M-tiles of a 2048-token prompt), which stay in L2
-// while both of its M-tiles use them.
-constexpr int kGroupM = 8;
+// the tiles in flight read the weights of a few experts (an expert owns
+// about two M-tiles of a 2048-token prompt), which stay in L2 while its
+// M-tiles use them. (Groups of 2, 8, 16 and 32 measured no faster than 4
+// at deepseek-moe-16b's prompt products.)
+constexpr int kGroupM = 4;
 __device__ __forceinline__ void tile_of(int64_t t, int tiles_m, int tiles_n,
                                         int& m, int& n) {
   const int64_t per_group = static_cast<int64_t>(kGroupM) * tiles_n;
@@ -362,6 +375,9 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_lhs,
   // this warpgroup's 64 rows and 128 columns of the tile
   const int row0 = BM == 128 ? wg * 64 : 0;
   const int col0 = BM == 128 ? 0 : wg * 128;
+  __nv_bfloat16* tile_out = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + (base - smem_u32(smem_raw)) + NST * C::STAGE)
+      + wg * 64 * C::kLdo;
   float acc[64];
   int it = 0;
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -413,17 +429,25 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_lhs,
     fence_regs(acc);
     if (threadIdx.x % 128 == 0) mbar_arrive(empty((it - 1) % NST));
     if (!live) continue;
-    // one rounding per element: acc[4 i + 2 r + u] is row 16 wq + gr + 8 r,
-    // column 8 i + 2 tg + u of the warpgroup's 64 x 128
-    const int64_t row = r0 + wq * 16 + gr;
+    // one rounding per element, through shared memory: acc[4 i + 2 r + u]
+    // is row 16 wq + gr + 8 r, column 8 i + 2 tg + u of the warpgroup's
+    // 64 x 128; the tile then leaves in 16-byte stores, a row's 256 bytes
+    // at a time (pairs of bf16 stored from the fragments straight to
+    // global memory cost ~20% of the call at a 2048-token prompt)
+    bar_sync(1 + wg, 128);   // the last tile's copy-out has read the buffer
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int col = c0 + 8 * i + 2 * tg;
-      if (col >= N) continue;
+    for (int i = 0; i < 16; ++i)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<__nv_bfloat162*>(out + (row + 8 * r) * N + col) =
+        *reinterpret_cast<__nv_bfloat162*>(
+            tile_out + (wq * 16 + gr + 8 * r) * C::kLdo + 8 * i + 2 * tg) =
             __floats2bfloat162_rn(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+    bar_sync(1 + wg, 128);
+    for (int idx = threadIdx.x % 128; idx < 64 * 16; idx += 128) {
+      const int r = idx / 16, c = (idx % 16) * 8;
+      if (c0 + c < N)
+        *reinterpret_cast<uint4*>(out + (r0 + r) * N + c0 + c) =
+            *reinterpret_cast<const uint4*>(tile_out + r * C::kLdo + c);
     }
   }
 }

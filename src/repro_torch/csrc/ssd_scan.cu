@@ -633,12 +633,14 @@ struct TcSmem {
   // pass 3: the C and B tiles [kT][kLw], the three parts of the state
   // entering [3][P][kLw] and the x tile [kT][kLx] (bf16), then dt and cum
   // [2 padded(Q)]; at the end the first 16 KB hold the partial sums the
-  // warp pairs add
+  // warp pairs add, and the x tile's place (past 16 KB at every N) the y
+  // tile
   static constexpr int kOutBytes = 2 * (2 * kT * kLw + 3 * kTcP * kLw
                                         + kT * kLx);
   static_assert(N == 32 || N == 64 || N == 128,
                 "the tensor-core body takes N = 32, 64 or 128");
-  static_assert(kOutBytes >= 4 * 32 * 32 * 4, "room for the partial sums");
+  static_assert(2 * (2 * kT * kLw + 3 * kTcP * kLw) >= 4 * 32 * 32 * 4,
+                "the partial sums end before the x tile");
 };
 
 // Pass 1, tensor cores: the chunk's cum as ssd_state_kernel, and its own
@@ -790,6 +792,7 @@ ssd_output_tc_kernel(const __nv_bfloat16* __restrict__ x,
   float* dtv = reinterpret_cast<float*>(xs + kT * kLx);   // [padded(Q)]
   float* cum = dtv + padded(Q);
   float* red = smem;               // at the end: [4][32][32] partial sums
+  __nv_bfloat16* ys = xs;          // ... and the y tile [kT][kLx] (bf16)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gr = lane >> 2, tg = lane & 3;
@@ -962,25 +965,33 @@ ssd_output_tc_kernel(const __nv_bfloat16* __restrict__ x,
     }
     __syncthreads();
   }
-  // the pairs' partial sums, lane-minor (no bank conflicts)
+  // the pairs' partial sums, lane-minor (no bank conflicts); the first of
+  // each pair rounds the sums into the y tile in shared memory, which
+  // leaves a row of 128 bytes at a time
   float* mine = red + (warp >> 1) * 32 * 32 + lane;
   if (half == 1) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) mine[i * 32] = acc[i / 4][i % 4];
   }
   __syncthreads();
-  if (half == 1) return;
+  if (half == 0) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int p = nt * 8 + 2 * tg;
+    for (int nt = 0; nt < 8; ++nt) {
+      const int p = nt * 8 + 2 * tg;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] += mine[(4 * nt + e) * 32];
-    if (r_lo < Q)
-      *reinterpret_cast<__nv_bfloat162*>(yh + r_lo * xrow + p) =
+      for (int e = 0; e < 4; ++e) acc[nt][e] += mine[(4 * nt + e) * 32];
+      *reinterpret_cast<__nv_bfloat162*>(ys + (rb + gr) * kLx + p) =
           __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-    if (r_lo + 8 < Q)
-      *reinterpret_cast<__nv_bfloat162*>(yh + (r_lo + 8) * xrow + p) =
+      *reinterpret_cast<__nv_bfloat162*>(ys + (rb + gr + 8) * kLx + p) =
           __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kT * P / 8; idx += kThreads) {
+    const int r = idx / (P / 8), c = (idx % (P / 8)) * 8;
+    if (i0 + r < Q)
+      *reinterpret_cast<uint4*>(yh + (i0 + r) * xrow + c) =
+          *reinterpret_cast<const uint4*>(ys + r * kLx + c);
   }
 }
 
