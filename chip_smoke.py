@@ -9,7 +9,16 @@ Phases, each of which exits non-zero on failure:
    one ``nvcc`` per source, all started together;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the shapes both main paths give it and larger ones, with CUDA-event
-   times: ``fused_tick`` (K2), ``rls_update`` (K1, float64 and float32),
+   times: ``fused_tick`` (K2's one tick), ``fused_interval`` (K2 as the
+   fused engine runs it: a decision interval of K ticks a launch, at (rows,
+   K) = (8, 12), (288, 12), (37, 1) and (37, 100); lag and the nine
+   metrics bit for bit, the detector within 1e-12, equal triggers),
+   ``rls_update`` (K1's one step, float64 and float32), ``arima_chunk``
+   (K1 as the forecast bank runs it: a flush of T ticks a launch, at
+   k = 5, 9, 17, 8 and 288 streams, T = 4, 12, 128; every output within
+   1e-12 of each stream's scale, no spill at these orders), each of the
+   last two also timed against the per-tick path it replaced and its
+   host wall,
    ``decode_attention`` (K3, split over positions: the serving shape beside
    ``scaled_dot_product_attention``, one row of 32 768 positions,
    deepseek-moe-16b's G = 1 over 16 KV heads, and a sweep over groups and
@@ -41,16 +50,20 @@ Phases, each of which exits non-zero on failure:
    the fused engine on the card, then on the NumPy batched engine and the
    fused engine on the CPU; every scenario must agree with the batched
    engine at rtol 1e-9, the detector triggers with the CPU run's, and K2
-   must have launched once per tick stepped;
+   (``fused_interval``) must have launched once per ``step_interval``
+   call and the per-tick ``fused_tick`` never;
 5. components on the card: a 288-stream mixed-family ``ForecastBank``
    against the scalar zoo (rtol 1e-9, equal binned-forecast decisions), a
    96-member ``GPBank.fit`` against the scalar ``GP.fit`` (posterior within
-   5% of scale), and the same profiling batch selected either way;
+   5% of scale), and the same profiling batch selected either way; the
+   bank launches K1 (``arima_chunk``) once per ARIMA chunk;
 6. the Demeter main path: ``paper_grid(controllers=("demeter",),
    trace_kinds=("ysb", "tsw"))`` at the paper's 18 h under the default
    ``EngineConfig()`` (fused engine, forecast bank with K1, GP bank,
    acquisition, all on the card); finite results, a failure in every
-   scenario, GP fits made, and K1 launched once per ARIMA tick replayed;
+   scenario, GP fits made, K1 (``arima_chunk``) launched once per ARIMA
+   chunk replayed, K2 (``fused_interval``) once per ``step_interval``
+   call, and the per-tick kernels never;
 7. the Demeter path, card against CPU: a 3-scenario, 2 h grid with the
    scalar GP fits, run on ``cuda`` and on ``cpu``; every scenario must agree
    at rtol 1e-9 with equal reconfiguration, fit and forecast-update counts;
@@ -114,17 +127,19 @@ Phases, each of which exits non-zero on failure:
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
 ``kernels`` line reports each kernel's launches on its own main path (K1
-and K2 on the Demeter path, K3 on the qwen2-7b serving path, K5 on the
-mamba2-1.3b one, K4 on the hubert-xlarge encoder path, K6 on the
-deepseek-moe-16b one) beside its times at that path's shapes; K7 has no
-model path (no model of the reference calls it): its launches are those
-counted on the deepseek-moe-16b run, and the script fails unless they
-are 0.
+and K2 on the Demeter path, as ``arima_chunk`` and ``fused_interval``, K3
+on the qwen2-7b serving path, K5 on the mamba2-1.3b one, K4 on the
+hubert-xlarge encoder path, K6 on the deepseek-moe-16b one) beside its
+times at that path's shapes. ``fused_tick`` and ``rls_update`` keep their
+phase-3 times with the launches the Demeter path counted, and K7, which
+no model of the reference calls, those counted on the deepseek-moe-16b
+run: the script fails unless these three are 0.
 
     python3 chip_smoke.py                     # from the root of a checkout
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -157,10 +172,32 @@ LAM, THRESH, DT = 0.995, 3.0, 5.0
 #: error 5, flag 2, Pphi 6, quadratic form and denominator 4, gains 2,
 #: weights 4, covariance 12.
 FUSED_TICK_OPS_PER_ROW = 42
+#: (rows, ticks) of the fused-interval checks: the Demeter path's width
+#: and the baseline's at an interval of 12 ticks (a 60-s decision interval
+#: at dt = 5 s), a one-tick interval and a long one.
+INTERVAL_SHAPES = ((8, 12), (288, 12), (37, 1), (37, 100))
+#: ticks of a decision interval on the main paths (60 s at dt = 5 s), and
+#: of the chunk the kernels line reports K1 at
+MAIN_INTERVAL = MAIN_CHUNK = 12
+#: float64 operations per row and tick of one fused interval: the metrics
+#: as step_batch_arrays writes them 60 (noise and capacity 4, lag update 9,
+#: throughput 2, utilisation and rho 6, base latency 5, backlog 2, memory
+#: per slot 2, GC penalty 5, noisy latency and its cap 7, CPU usage 5,
+#: state, memory need and fraction 10, memory usage 2, down 1), the
+#: detector 35 as FUSED_TICK_OPS_PER_ROW counts it and the trigger count 1.
+FUSED_INTERVAL_OPS_PER_ROW_TICK = 96
+#: bytes of state and config a row (112 read: lag, w, P, y, trig and five
+#: config operands; 72 written: lag, w, P, y, trig) and a row and tick
+#: (34 of planes in, 72 of metrics out)
+INTERVAL_BYTES_PER_ROW, INTERVAL_BYTES_PER_ROW_TICK = 184, 106
 #: Rows and orders the RLS check uses (k = p_max + 1 of the forecast bank:
 #: 5, 9 and 17); the Demeter main path's own row count is added.
 RLS_ROWS = (16, 288, 65_536)
 RLS_ORDERS = (5, 9, 17)
+#: streams and chunk lengths of the ARIMA-chunk checks, at each of
+#: RLS_ORDERS: the Demeter path's width and the baseline's; a short flush,
+#: the sweep's usual one (~12 ticks between reads) and a full queue
+CHUNK_STREAMS, CHUNK_TICKS = (8, 288), (4, 12, 128)
 #: the forecast bank's default ARIMA order p = 8 gives k = 9
 MAIN_K = 9
 #: Demeter main path width: paper seeds (2 scenarios each; seed 0 alone is
@@ -258,6 +295,10 @@ MLA_ABSORBED_BAR = 2e-2
 #: kernels that no model of the reference calls: every serving path counts
 #: their launches and must count none
 NO_MODEL_PATH = ("fused_rmsnorm",)
+#: the direct counterparts of the Pallas K2 and K1, checked in phase 3; the
+#: paths launch fused_interval and arima_chunk instead, and the Demeter
+#: path must count none of these
+PER_TICK_KERNELS = ("fused_tick", "rls_update")
 
 
 def fail(msg: str) -> NoReturn:
@@ -482,6 +523,255 @@ def check_rls(B: int, k: int, dtype) -> dict:
                     (5 * k * k + 2 * k) * B,
                     FP64_OPS_PER_S if dtype == torch.float64
                     else FP32_OPS_PER_S)}
+
+
+@contextlib.contextmanager
+def per_tick_kernels():
+    """The path before the interval and chunk kernels, as the yardstick of
+    their time: the plain versions' loops with the per-tick kernels (K2's
+    ``fused_tick``, K1's ``rls_rank1_update``) in place of the plain tick
+    and the plain RLS step, as ``dsp/fused.py`` and the forecast bank ran
+    them."""
+    from repro_torch.kernels import fused_tick as k2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rls_update as k1
+    saved = ref.fused_tick_ref, ref.rls_rank1_update_ref
+    ref.fused_tick_ref, ref.rls_rank1_update_ref = (k2.fused_tick,
+                                                    k1.rls_rank1_update)
+    try:
+        yield
+    finally:
+        ref.fused_tick_ref, ref.rls_rank1_update_ref = saved
+
+
+def slow_ms(fn) -> dict:
+    """Device time and host wall per call of a path of hundreds of small
+    launches (a plain version, the per-tick path), from few calls."""
+    return {"device": device_ms(fn, n=8, warmup=2, host_n=4),
+            "host": host_ms(fn, n=4)}
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN payloads included (``torch.equal`` calls two
+    NaNs different)."""
+    import torch
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def interval_operands(S: int, K: int, seed: int, device):
+    """One fused-engine interval's operands: the state mid-run, mixed
+    configs, rows down before and after ticks (z2 = 0 where down after, as
+    the host draws it) and rollback lag on some ticks."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    down_pre = rng.random((K, S)) < 0.15
+    down_post = down_pre & (rng.random((K, S)) < 0.7)
+    z2 = np.abs(rng.normal(size=(K, S)))
+    z2[down_post] = 0.0
+    a = dict(
+        lag=rng.uniform(0.0, 2e5, S) * (rng.random(S) < 0.6),
+        det_w=rng.normal(size=(S, 2)) * 0.1,
+        det_p=np.broadcast_to(10.0 * np.eye(2), (S, 2, 2)).copy(),
+        det_y=rng.uniform(0.0, 12.0, S),
+        det_trig=rng.integers(0, 5, S).astype(np.int64),
+        rates=rng.uniform(1e4, 9e4, (K, S)),
+        lag_add=rng.uniform(0.0, 5e4, (K, S)) * (rng.random((K, S)) < 0.1),
+        down_pre=down_pre, down_post=down_post,
+        z1=rng.normal(size=(K, S)), z2=z2,
+        workers=rng.integers(1, 25, S).astype(np.float64),
+        cpu_cores=rng.integers(1, 5, S).astype(np.float64),
+        memory_mb=rng.choice([1024.0, 2048.0, 4096.0], S),
+        task_slots=rng.integers(1, 4, S).astype(np.float64),
+        cap_base=rng.uniform(1e4, 8e4, S))
+    return {k: torch.from_numpy(v).to(device) for k, v in a.items()}
+
+
+INTERVAL_STATE = ("lag", "det_w", "det_p", "det_y", "det_trig")
+INTERVAL_REST = ("rates", "lag_add", "down_pre", "down_post", "z1", "z2",
+                 "workers", "cpu_cores", "memory_mb", "task_slots",
+                 "cap_base")
+
+
+def check_fused_interval(S: int, K: int) -> dict:
+    """The CUDA fused interval against its plain version on ``S`` rows and
+    ``K`` ticks: lag and the nine metrics bit for bit, the detector within
+    1e-12 with equal trigger counts, the same bits on a second call; timed
+    beside the plain version and the per-tick path it replaces."""
+    import torch
+    from repro_torch.dsp import ClusterModel
+    from repro_torch.kernels import fused_tick as kmod
+    from repro_torch.kernels.ref import METRIC_KEYS, fused_interval_ref
+    t = interval_operands(S, K, seed=S * 1000 + K, device="cuda")
+    model = ClusterModel()
+    rest = [t[k] for k in INTERVAL_REST]
+
+    def run(fn, state=None):
+        state = state or [t[k].clone() for k in INTERVAL_STATE]
+        return fn(model, *state, *rest, LAM, THRESH, DT), state
+    got, got_state = run(kmod.fused_interval)
+    torch.cuda.synchronize()
+    want, want_state = run(fused_interval_ref)
+    name = f"fused_interval S={S} K={K}"
+    for q, key in enumerate(METRIC_KEYS):
+        if not torch.equal(got[q], want[q]):
+            fail(f"{name}: {key} differs from the plain version (max "
+                 f"{float((got[q] - want[q]).abs().max())})")
+    if not torch.equal(got_state[0], want_state[0]):
+        fail(f"{name}: lag differs from the plain version")
+    for key, g, r in zip(INTERVAL_STATE[1:4], got_state[1:4],
+                         want_state[1:4]):
+        torch.testing.assert_close(g, r, rtol=1e-12, atol=1e-12,
+                                   msg=f"{name}: {key}")
+    if not torch.equal(got_state[4], want_state[4]):
+        fail(f"{name}: trigger counts differ from the plain version")
+    again, again_state = run(kmod.fused_interval)
+    torch.cuda.synchronize()
+    if not (same_bits(again, got) and all(
+            same_bits(a, g) for a, g in zip(again_state, got_state))):
+        fail(f"{name}: a second call gave other bits")
+    max_err = max(float((g.double() - r.double()).abs().max())
+                  for g, r in zip([got, *got_state], [want, *want_state]))
+    state = [t[k].clone() for k in INTERVAL_STATE]   # advanced by the timing
+    call = lambda: run(kmod.fused_interval, state)  # noqa: E731
+    plain = slow_ms(lambda: run(fused_interval_ref, state))
+    with per_tick_kernels():
+        old = slow_ms(lambda: run(fused_interval_ref, state))
+    n_bytes = S * (INTERVAL_BYTES_PER_ROW + INTERVAL_BYTES_PER_ROW_TICK * K)
+    return {"rows": S, "ticks": K, "max_abs_err": max_err, "bytes": n_bytes,
+            "ms": device_ms(call), "dispatch_ms": host_ms(call),
+            "plain_ms": plain["device"], "plain_dispatch_ms": plain["host"],
+            "per_tick_path_ms": old["device"],
+            "per_tick_path_host_ms": old["host"],
+            **bound(n_bytes, FUSED_INTERVAL_OPS_PER_ROW_TICK * S * K,
+                    FP64_OPS_PER_S),
+            "ptxas": ptxas_of("fused_interval_kernel")}
+
+
+def chunk_operands(B: int, k: int, T: int, seed: int, device):
+    """The ARIMA family's state after a 40-tick warm-up and a (T, B) chunk
+    of ticks in thousands of events/s: orders p up to k - 1, depths 1 and
+    2, 5% NaN gaps, two padding ticks at the end of a chunk of 4 or more,
+    and one stream whose 1e308 spike overflows its next step (the
+    divergence reset). Returns (state, params with the trace cap, vals)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ref import arima_chunk_ref
+    rng = np.random.default_rng(seed)
+    p = rng.integers(1, k, B)
+    p[0] = k - 1
+    d = rng.integers(1, 3, B)
+    ridge = rng.uniform(1.0, 20.0, B)
+    lam = rng.uniform(0.97, 1.0, B)
+    ts = np.arange(T + 40)[:, None]
+    vals = 40.0 + 8.0 * np.sin(2 * np.pi * ts / 37.0 + rng.uniform(0, 6, B)) \
+        + rng.normal(0, 0.5, (T + 40, B))
+    vals[rng.random(vals.shape) < 0.05] = np.nan
+    chunk = vals[40:]
+    if T >= 4:
+        chunk[-2:] = np.nan
+    spike = max(T - 4, 0)
+    chunk[spike, -1] = 1e308
+    if spike + 1 < T:
+        chunk[spike + 1, -1] = 40.0
+    f64 = dict(dtype=torch.float64, device=device)
+    state = [torch.zeros((B, k), **f64),
+             torch.as_tensor(ridge[:, None, None] * np.eye(k), **f64),
+             torch.zeros((B, k - 1), **f64), torch.zeros((B, 2), **f64),
+             torch.zeros(B, dtype=torch.int64, device=device),
+             torch.zeros(B, **f64)]
+    params = [torch.as_tensor(p, device=device),
+              torch.as_tensor(d, device=device), torch.as_tensor(lam, **f64),
+              torch.as_tensor(ridge, **f64)]
+    cap = params[3] * (params[0] + 1).double() * 1e4    # P_TRACE_CAP
+    arima_chunk_ref(*state, *params, cap, torch.as_tensor(vals[:40], **f64))
+    return state, params + [cap], torch.as_tensor(chunk, **f64)
+
+
+def rel_by_stream(got, want, stream_dim: int = 0) -> float:
+    """The largest difference relative to each stream's largest finite
+    magnitude; fails unless the non-finite entries match in place."""
+    import torch
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        fail("non-finite entries differ from the plain version's")
+    g, w, f = (x.movedim(stream_dim, 0).reshape(x.shape[stream_dim], -1)
+               for x in (got, want, fin))
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    scale = torch.where(f, w.abs(), zero).amax(1).clamp_min(1e-300)
+    return float((torch.where(f, (g - w).abs(), zero).amax(1) / scale).max())
+
+
+def arima_design(k: int) -> str:
+    """The arima_chunk instantiation that runs order k (csrc dispatch)."""
+    kc = k if k in (5, 9, 17) else 32 if k <= 32 else 64
+    return f"arima_chunk_kernel<{kc}>"
+
+
+def check_arima_chunk(B: int, k: int, T: int) -> dict:
+    """The CUDA ARIMA chunk against its plain version: every output within
+    1e-12 of each stream's scale, do_rls and count equal, the same bits on
+    a second call, no spill at the bank's orders; timed beside the plain
+    version and the per-tick path it replaces."""
+    import torch
+    from repro_torch.kernels import rls_update as kmod
+    from repro_torch.kernels.ref import arima_chunk_ref
+    state, params, vals = chunk_operands(B, k, T, seed=B * 1000 + k * 10 + T,
+                                         device="cuda")
+
+    def run(fn, st=None):
+        st = st or [x.clone() for x in state]
+        return fn(*st, *params, vals), st
+    (resid, do), got_state = run(kmod.arima_chunk)
+    torch.cuda.synchronize()
+    (resid_r, do_r), want_state = run(arima_chunk_ref)
+    name = f"arima_chunk B={B} k={k} T={T}"
+    if not torch.equal(do, do_r):
+        fail(f"{name}: do_rls differs from the plain version")
+    rels = {"resid": rel_by_stream(resid, resid_r, stream_dim=1)}
+    for key, g, r in zip(("w", "P", "lags", "tails", "count", "last"),
+                         got_state, want_state):
+        if g.dtype == torch.int64:
+            if not torch.equal(g, r):
+                fail(f"{name}: {key} differs from the plain version")
+        else:
+            rels[key] = rel_by_stream(g, r)
+    worst = max(rels.values())
+    if not worst <= 1e-12:
+        fail(f"{name}: relative error {rels} exceeds 1e-12")
+    (resid2, do2), again_state = run(kmod.arima_chunk)
+    torch.cuda.synchronize()
+    if not (same_bits(resid2, resid) and same_bits(do2, do) and all(
+            same_bits(a, g) for a, g in zip(again_state, got_state))):
+        fail(f"{name}: a second call gave other bits")
+    design = arima_design(k)
+    spill = PTXAS.get(design, {}).get("spill_stores")
+    if spill is None or spill > 0:
+        fail(f"{name}: {design} spills ({PTXAS.get(design)})")
+    fin = torch.isfinite(resid) & torch.isfinite(resid_r)
+    max_err = max([float((resid - resid_r)[fin].abs().max())]
+                  + [float((g - r).double().abs().max())
+                     for g, r in zip(got_state, want_state)
+                     if torch.isfinite(r).all()])
+    n_state = sum(x.numel() * x.element_size() for x in state)
+    n_bytes = 2 * n_state + sum(x.numel() * x.element_size()
+                                for x in params) + 17 * T * B
+    n_valid = int(torch.isfinite(vals).sum())
+    st = [x.clone() for x in state]        # advanced by the timing
+    call = lambda: run(kmod.arima_chunk, st)  # noqa: E731
+    plain = slow_ms(lambda: run(arima_chunk_ref, st))
+    with per_tick_kernels():
+        old = slow_ms(lambda: run(arima_chunk_ref, st))
+    return {"streams": B, "k": k, "ticks": T, "max_rel_err": worst,
+            "max_abs_err": max_err, "bytes": n_bytes,
+            "ms": device_ms(call), "dispatch_ms": host_ms(call),
+            "plain_ms": plain["device"], "plain_dispatch_ms": plain["host"],
+            "per_tick_path_ms": old["device"],
+            "per_tick_path_host_ms": old["host"],
+            **bound(n_bytes, (8 * k * k + 8 * k) * n_valid, FP64_OPS_PER_S),
+            "ptxas": ptxas_of(design)}
 
 
 def attention_operands(B: int, S: int, Hkv: int, G: int, D: int, dtype,
@@ -925,7 +1215,8 @@ def check_result(res, n_scenarios: int, n_steps: int) -> None:
 
 
 def baseline_path() -> int:
-    """Phase 4; returns K2's launches in the card sweep."""
+    """Phase 4; returns K2's launches in the card sweep (one a decision
+    interval: ``fused_interval``)."""
     import numpy as np
     from repro_torch.core import EngineConfig
     from repro_torch.dsp import SweepEngine, paper_grid
@@ -941,10 +1232,12 @@ def baseline_path() -> int:
             ("fused-cpu", EngineConfig(sim_backend="fused", device="cpu"))):
         eng = SweepEngine(specs, config=config)
         if label == "fused-cuda":
-            kmod.fused_tick.launches = 0
+            kmod.fused_interval.launches = kmod.fused_tick.launches = 0
         res = eng.run()
         if label == "fused-cuda":
-            launches = kmod.fused_tick.launches
+            launches = kmod.fused_interval.launches
+            per_tick = kmod.fused_tick.launches
+            intervals = eng.executor.intervals_stepped
             ticks_stepped = eng.executor.step_index + 1
         check_result(res, S, eng.n_steps)
         runs[label] = (res, eng.executor)
@@ -969,11 +1262,13 @@ def baseline_path() -> int:
     print(f"anomaly_triggers equal on cuda and cpu (total "
           f"{int(trig_cuda.sum())})")
     n_steps = runs["fused-cuda"][0].n_steps
-    if not launches == ticks_stepped == n_steps:
-        fail(f"fused_tick launched {launches} times for {ticks_stepped} "
-             f"ticks stepped ({n_steps} in the run)")
-    print(f"baseline path: fused_tick launches {launches} (one per tick of "
-          f"{n_steps})", flush=True)
+    if ticks_stepped != n_steps:
+        fail(f"the fused engine stepped {ticks_stepped} of {n_steps} ticks")
+    if not launches == intervals > 0 or per_tick != 0:
+        fail(f"fused_interval launched {launches} times for {intervals} "
+             f"step_interval calls (fused_tick {per_tick} times)")
+    print(f"baseline path: fused_interval launches {launches} (one per "
+          f"step_interval call, {n_steps} ticks)", flush=True)
     return launches
 
 
@@ -999,7 +1294,7 @@ def check_forecast_bank(device: str) -> dict:
     bank = ForecastBank(row_kinds, horizon=10, device=device)
     views = bank.views()
     scalars = [make_scalar_forecaster(k) for k in row_kinds]
-    launches0 = kmod.rls_rank1_update.launches
+    launches0 = (kmod.arima_chunk.launches, kmod.rls_rank1_update.launches)
     worst, n_reads = 0.0, 0
     t0 = time.perf_counter()
     for t in range(vals.shape[0]):
@@ -1021,12 +1316,15 @@ def check_forecast_bank(device: str) -> dict:
                 if int(b * 1000 // 10_000) != int(w * 1000 // 10_000):
                     fail(f"forecast bank row {j}: binned-forecast decision "
                          f"{b} vs {w}")
-    launches = kmod.rls_rank1_update.launches - launches0
-    if device == "cuda" and launches != bank.arima_ticks:
-        fail(f"forecast bank: {launches} rls_update launches for "
-             f"{bank.arima_ticks} ARIMA ticks")
+    launches = kmod.arima_chunk.launches - launches0[0]
+    per_step = kmod.rls_rank1_update.launches - launches0[1]
+    if device == "cuda" and not (launches == bank.arima_chunks > 0
+                                 and per_step == 0):
+        fail(f"forecast bank: {launches} arima_chunk launches for "
+             f"{bank.arima_chunks} ARIMA chunks (rls_update {per_step})")
     return {"streams": n, "ticks": int(vals.shape[0]), "reads": n_reads,
-            "max_rel_diff": worst, "rls_launches": launches,
+            "max_rel_diff": worst, "arima_chunk_launches": launches,
+            "arima_chunks": bank.arima_chunks,
             "arima_ticks": bank.arima_ticks,
             "update_wall_s": bank.update_wall_s,
             "wall_s": time.perf_counter() - t0}
@@ -1179,28 +1477,32 @@ def demeter_main_path(n_seeds: int, device: str = "cuda") -> dict:
     timers.wrap(SweepExecutorBase, "profile", "profiling clones")
     timers.wrap(DemeterController, "_pick_config", "pick config")
     timers.wrap(DemeterController, "_select_profiles", "select profiles")
-    k1.rls_rank1_update.launches = 0
-    k2.fused_tick.launches = 0
+    k1.arima_chunk.launches = k1.rls_rank1_update.launches = 0
+    k2.fused_interval.launches = k2.fused_tick.launches = 0
     try:
         res = eng.run()
         if device == "cuda":
             torch.cuda.synchronize()
     finally:
         timers.restore()
-    launches = {"rls_update": k1.rls_rank1_update.launches,
+    launches = {"arima_chunk": k1.arima_chunk.launches,
+                "fused_interval": k2.fused_interval.launches,
+                "rls_update": k1.rls_rank1_update.launches,
                 "fused_tick": k2.fused_tick.launches}
     check_result(res, S, eng.n_steps)
     if not res.n_model_fits > 0:
         fail("Demeter main path fitted no GP")
-    ticks = eng.executor.step_index + 1
+    chunks = eng.forecast_bank.arima_chunks
+    intervals = eng.executor.intervals_stepped
     if device == "cuda":
-        if launches["rls_update"] != eng.forecast_bank.arima_ticks \
-                or launches["rls_update"] == 0:
-            fail(f"rls_update launched {launches['rls_update']} times for "
-                 f"{eng.forecast_bank.arima_ticks} ARIMA ticks replayed")
-        if launches["fused_tick"] != ticks:
-            fail(f"fused_tick launched {launches['fused_tick']} times for "
-                 f"{ticks} ticks")
+        if not launches["arima_chunk"] == chunks > 0:
+            fail(f"arima_chunk launched {launches['arima_chunk']} times for "
+                 f"{chunks} ARIMA chunks replayed")
+        if not launches["fused_interval"] == intervals > 0:
+            fail(f"fused_interval launched {launches['fused_interval']} "
+                 f"times for {intervals} step_interval calls")
+        if launches["rls_update"] or launches["fused_tick"]:
+            fail(f"the per-tick kernels ran on the Demeter path: {launches}")
     out = {"scenarios": S, "n_steps": res.n_steps, "wall_s": res.wall_s,
            "model_update_wall_s": res.model_update_wall_s,
            "model_update_compile_wall_s": res.model_update_compile_wall_s,
@@ -1212,6 +1514,7 @@ def demeter_main_path(n_seeds: int, device: str = "cuda") -> dict:
            "reconfigurations": sum(s.n_reconfigurations
                                    for s in res.scenarios),
            "arima_ticks": eng.forecast_bank.arima_ticks,
+           "arima_chunks": chunks, "intervals": intervals,
            "launches": launches, "layer_wall_s": timers.wall,
            "layer_calls": timers.calls}
     print("demeter main path " + json.dumps(out), flush=True)
@@ -2024,6 +2327,17 @@ def main() -> int:
                 r = check_rls(B, k, dtype)
                 rls_rows[(B, k, r["dtype"])] = r
                 print("kernel rls_update " + json.dumps(r), flush=True)
+    # K2 and K1 as the paths run them: a decision interval a launch, and a
+    # flush of the forecast bank a launch
+    interval_rows, chunk_rows = {}, {}
+    for S, K in sorted({(main_tick_rows, MAIN_INTERVAL), *INTERVAL_SHAPES}):
+        interval_rows[(S, K)] = r = check_fused_interval(S, K)
+        print("kernel fused_interval " + json.dumps(r), flush=True)
+    for k in RLS_ORDERS:
+        for B in sorted({main_rls_rows, *CHUNK_STREAMS}):
+            for T in CHUNK_TICKS:
+                chunk_rows[(B, k, T)] = r = check_arima_chunk(B, k, T)
+                print("kernel arima_chunk " + json.dumps(r), flush=True)
     # K3 at the serving path's shapes (qwen2-7b: Hkv = 4, G = 7, D = 128;
     # 16 slots of 4096), then over groups and head dims
     serve_cfg = get_config(SERVE_ARCH)
@@ -2262,6 +2576,8 @@ def main() -> int:
     # times at that path's shapes
     tick = tick_rows[main_tick_rows]
     rls = rls_rows[(main_rls_rows, MAIN_K, "float64")]
+    interval = interval_rows[(main_tick_rows, MAIN_INTERVAL)]
+    chunk = chunk_rows[(main_rls_rows, MAIN_K, MAIN_CHUNK)]
     attn = attn_rows["bfloat16"]
     ssd = ssd_rows[(SSM_ARCH, "bfloat16")]
     flash = flash_rows["encoder"]
@@ -2275,6 +2591,24 @@ def main() -> int:
     gmm = gmm_rows[("decode", moe_cfg.d_model)]
     rms = rms_rows["bfloat16"]
     kernels = [{
+        "name": "fused_interval", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_tick.cu",
+        "replaces": "src/repro/kernels/fused_tick.py:72",
+        "launches": main_path["launches"]["fused_interval"],
+        "max_abs_err": max(r["max_abs_err"] for r in interval_rows.values()),
+        "ms": interval["ms"], "plain_ms": interval["plain_ms"],
+        "bound_ms": interval["bound_ms"], "bound_by": interval["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "arima_chunk", "route": "cuda",
+        "source": "src/repro_torch/csrc/rls_update.cu",
+        "replaces": "src/repro/kernels/rls_update.py:41",
+        "launches": main_path["launches"]["arima_chunk"],
+        "max_abs_err": max(r["max_abs_err"] for r in chunk_rows.values()),
+        "ms": chunk["ms"], "plain_ms": chunk["plain_ms"],
+        "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
+        "library_ms": None,
+    }, {
         "name": "fused_tick", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_tick.cu",
         "replaces": "src/repro/kernels/fused_tick.py:72",
@@ -2348,10 +2682,10 @@ def main() -> int:
                 ("library_ms",) if k["library_ms"] is not None else ()):
             if not math.isfinite(k[key]):
                 fail(f"{k['name']}: {key} is not finite")
-        if k["name"] in NO_MODEL_PATH:
+        if k["name"] in NO_MODEL_PATH + PER_TICK_KERNELS:
             if k["launches"] != 0:
-                fail(f"{k['name']} launched {k['launches']} times on the "
-                     f"{MOE_ARCH} path, which calls it nowhere")
+                fail(f"{k['name']} launched {k['launches']} times on a "
+                     f"path that calls it nowhere")
         elif not k["launches"] > 0:
             fail(f"{k['name']} was not launched on the main path")
     print(f"total {time.perf_counter() - t_start:.1f} s")

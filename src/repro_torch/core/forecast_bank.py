@@ -77,12 +77,9 @@ class _ArimaParams(NamedTuple):
 
 
 class _ArimaConst(NamedTuple):
-    """Per-bank constants derived from the params once, not per tick."""
+    """Per-bank constants derived from the params once, not per chunk."""
     dims: torch.Tensor    # (B, p_max) bool: active lag dims
-    adim: torch.Tensor    # (B, k) bool: active dims incl. the bias
-    amask: torch.Tensor   # (B, k, k) bool: active block of P
     cap: torch.Tensor     # (B,) trace cap
-    P_pin: torch.Tensor   # (B, k, k) ridge * I
     ones: torch.Tensor    # (B, 1) the bias column of phi
     d_lt: List[torch.Tensor]   # d_lt[j] = j < d, (B,) bool, j < d_max
     pd: torch.Tensor      # (B,) p + d
@@ -93,76 +90,14 @@ def _arima_const(params: _ArimaParams, k: int, d_max: int) -> _ArimaConst:
     B, p_max = p.shape[0], k - 1
     dev = p.device
     dims = torch.arange(p_max, device=dev)[None, :] < p[:, None]
-    adim = torch.cat([dims, torch.ones((B, 1), dtype=torch.bool,
-                                       device=dev)], dim=1)
     cap = ridge * (p + 1).to(_F64) * P_TRACE_CAP
-    P_pin = ridge[:, None, None] * torch.eye(k, dtype=_F64, device=dev)
-    return _ArimaConst(dims, adim, adim[:, :, None] & adim[:, None, :], cap,
-                       P_pin, torch.ones((B, 1), dtype=_F64, device=dev),
+    return _ArimaConst(dims, cap, torch.ones((B, 1), dtype=_F64, device=dev),
                        [j < d for j in range(d_max)], p + d)
 
 
 def _arima_phi(lags: torch.Tensor, c: _ArimaConst) -> torch.Tensor:
     """Masked regression vector [active lags, bias] — padded dims read 0."""
     return torch.cat([torch.where(c.dims, lags, 0.0), c.ones], dim=1)
-
-
-def _arima_step_core(core, params: _ArimaParams, c: _ArimaConst,
-                     values: torch.Tensor):
-    """One masked online step for every stream (mirror of
-    :meth:`repro_torch.core.forecast.OnlineARIMA.update`), minus the residual
-    ring: the chunk pushes every tick's ``(resid, do_rls)`` in one scatter.
-    A non-finite value is a no-op for its stream."""
-    w, P, lags, tails, count, last = core
-    p, d, lam, _ridge = params
-    d_max = tails.shape[1]
-    valid = torch.isfinite(values)
-    v = torch.where(valid, values, 0.0)
-
-    # Incremental differencing cascade: diffs[j] = the new sample's
-    # j-times-differenced value, from the per-order tails.
-    diffs = [v]
-    for j in range(d_max):
-        diffs.append(diffs[j] - tails[:, j])
-    target = torch.gather(torch.stack(diffs, dim=1), 1, d[:, None])[:, 0]
-
-    phi = _arima_phi(lags, c)
-    gain, P_new = ops.rls_rank1_update(P, phi, lam)
-    resid = target - (w * phi).sum(-1)
-    w_new = w + gain * resid[:, None]
-    # Re-symmetrize (the rank-1 downdate is symmetric in exact arithmetic;
-    # roundoff would otherwise accumulate into an indefinite P), then apply
-    # the anti-windup trace clamp over the active dims (P_TRACE_CAP).
-    P_new = 0.5 * (P_new + P_new.transpose(1, 2))
-    diag = torch.diagonal(P_new, dim1=1, dim2=2)
-    tr = torch.where(c.adim, diag, 0.0).sum(1)
-    P_new = P_new * torch.where(tr > c.cap, c.cap / tr, 1.0)[:, None, None]
-    # Padded dims stay pinned at their ridge * I initialization (the /λ in
-    # the covariance update would otherwise inflate them without bound).
-    P_new = torch.where(c.amask, P_new, c.P_pin)
-    # Safety net, mirroring the scalar oracle: a diverged stream restarts
-    # its tracker from the prior instead of poisoning later updates.
-    ok = (torch.isfinite(w_new).all(1)
-          & torch.isfinite(P_new).flatten(1).all(1))
-    w_new = torch.where(ok[:, None], w_new, 0.0)
-    P_new = torch.where(ok[:, None, None], P_new, c.P_pin)
-
-    # RLS fires once p + d + 1 samples exist (count is pre-increment).
-    do_rls = valid & (count >= c.pd)
-    w = torch.where(do_rls[:, None], w_new, w)
-    P = torch.where(do_rls[:, None, None], P_new, P)
-
-    # The differenced series gains a value once count >= d.
-    defined = valid & (count >= d)
-    shifted = torch.cat([target[:, None], lags[:, :-1]], dim=1)
-    lags = torch.where(defined[:, None], shifted, lags)
-    if d_max:
-        tails = torch.stack([
-            torch.where(valid & (count >= j) & c.d_lt[j], diffs[j],
-                        tails[:, j]) for j in range(d_max)], dim=1)
-    last = torch.where(valid, v, last)
-    count = count + valid.to(count.dtype)
-    return (w, P, lags, tails, count, last), resid, do_rls
 
 
 def _arima_roll(state: _ArimaState, params: _ArimaParams, c: _ArimaConst,
@@ -195,20 +130,17 @@ def _arima_roll(state: _ArimaState, params: _ArimaParams, c: _ArimaConst,
 
 def _arima_chunk(state: _ArimaState, params: _ArimaParams, c: _ArimaConst,
                  vals: torch.Tensor) -> _ArimaState:
-    """Apply a (T, B) chunk of queued ticks, one batched step per tick.
+    """Apply a (T, B) chunk of queued ticks: one
+    :func:`~repro_torch.kernels.ops.arima_chunk` call, which updates the
+    state tensors in place and returns each tick's residual and RLS flag.
 
     NaN is the not-staged sentinel: a NaN sample is skipped by the update
-    anyway. The residual-ring writes are hoisted out of the loop: slot order
-    within a chunk is deterministic, so all pushes land in one scatter
+    anyway. The residual-ring writes follow in one scatter: slot order
+    within a chunk is deterministic, so all pushes land at once
     (T <= queue cap < ring width, hence no slot collisions)."""
-    core = (state.w, state.P, state.lags, state.tails, state.count,
-            state.last)
-    resids, dos = [], []
-    for t in range(vals.shape[0]):
-        core, resid, do = _arima_step_core(core, params, c, vals[t])
-        resids.append(resid)
-        dos.append(do)
-    resids_t, dos_t = torch.stack(resids), torch.stack(dos)      # (T, B)
+    resids_t, dos_t = ops.arima_chunk(
+        state.w, state.P, state.lags, state.tails, state.count, state.last,
+        *params, c.cap, vals)                                    # (T, B)
     err, err_n = state.err, state.err_n
     E = err.shape[1]
     ranks = torch.cumsum(dos_t.to(err_n.dtype), dim=0) - 1
@@ -218,7 +150,7 @@ def _arima_chunk(state: _ArimaState, params: _ArimaParams, c: _ArimaConst,
     ring = torch.cat([err, torch.zeros_like(err[:, :1])], dim=1)
     ring[rows.reshape(-1), slots.reshape(-1)] = resids_t.reshape(-1)
     err_n = err_n + dos_t.sum(0).to(err_n.dtype)
-    return _ArimaState(*core, err=ring[:, :E], err_n=err_n)
+    return state._replace(err=ring[:, :E], err_n=err_n)
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +297,8 @@ class _FamilyBank:
         self._after_params()
         #: ticks replayed through chunks (padding ticks included)
         self.ticks_replayed = 0
+        #: chunks replayed (one per flush that found staged ticks)
+        self.chunks_replayed = 0
 
     def _t(self, a, dtype=_F64) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -421,8 +355,10 @@ class _FamilyBank:
         """Replay a chunk; the state tensors are updated in place."""
         new = self._step_chunk(self._t(vals))
         for buf, src in zip(self.state, new):
-            buf.copy_(src)
+            if src is not buf:
+                buf.copy_(src)
         self.ticks_replayed += vals.shape[0]
+        self.chunks_replayed += 1
 
     def flush(self) -> int:
         if not any(self._q):
@@ -665,9 +601,15 @@ class ForecastBank:
 
     @property
     def arima_ticks(self) -> int:
-        """Ticks the ARIMA family replayed (one rls_rank1_update each)."""
+        """Ticks the ARIMA family replayed (padding ticks included)."""
         fam = self._fams.get("arima")
         return fam.ticks_replayed if fam is not None else 0
+
+    @property
+    def arima_chunks(self) -> int:
+        """Chunks the ARIMA family replayed (one arima_chunk call each)."""
+        fam = self._fams.get("arima")
+        return fam.chunks_replayed if fam is not None else 0
 
     def family(self, kind: str) -> _FamilyBank:
         return self._fams[kind]

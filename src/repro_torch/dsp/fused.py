@@ -7,15 +7,15 @@ host-quiet run of K ticks (everything between two scheduled events) in one
 :meth:`FusedSweepExecutor.step_interval` call: the host precomputes the
 interval's clocks and RNG draws as ``[K, S]`` planes, copies them to the
 device once, and :func:`fused_interval_scan` advances the device state
-through the K ticks. Each tick runs
-:func:`~repro_torch.dsp.simulator.step_batch_arrays` for the metrics and
-the fused-tick kernel (:func:`repro_torch.kernels.ops.fused_tick`: the CUDA
-kernel on the card, its plain version on the CPU) for the lag carry and the
-anomaly detector — an AR(1)+bias RLS predictor on ``log1p(consumer_lag)``
-whose trigger flags accumulate into
-:attr:`FusedSweepExecutor.anomaly_triggers`. The detector feeds nothing
-back into the simulation, so the engine's results equal the ``"batched"``
-engine's.
+through the K ticks in one call of
+:func:`repro_torch.kernels.ops.fused_interval`: on the card one launch of
+the CUDA interval kernel, on the CPU its plain version, which runs each
+tick as :func:`~repro_torch.dsp.simulator.step_batch_arrays` for the
+metrics and the fused tick for the lag carry and the anomaly detector — an
+AR(1)+bias RLS predictor on ``log1p(consumer_lag)`` whose trigger flags
+accumulate into :attr:`FusedSweepExecutor.anomaly_triggers`. The detector
+feeds nothing back into the simulation, so the engine's results equal the
+``"batched"`` engine's.
 
 What stays on the host, vectorized NumPy: the downtime/checkpoint clocks
 and the per-row RNG streams. Their draws must stay bit-identical to the
@@ -31,20 +31,16 @@ import numpy as np
 import torch
 
 from ..core.registry import SIM_ENGINES
-from ..kernels.ops import fused_tick
+from ..kernels import ops
+from ..kernels.ref import METRIC_KEYS
 from .executor import SweepExecutorBase
-from .simulator import (BatchedNormals, BatchState, ClusterModel, JobConfig,
-                        step_batch_arrays)
+from .simulator import BatchedNormals, BatchState, ClusterModel, JobConfig
 
 #: AR order of the on-device detector: bias + previous log-lag sample.
 DET_ORDER = 2
 #: RLS forgetting factor / trigger threshold of the on-device detector.
 DET_LAMBDA = 0.995
 DET_THRESH = 3.0
-
-#: The metric keys an interval returns, in the order they are stacked.
-METRIC_KEYS = ("rate", "throughput", "capacity", "consumer_lag", "latency",
-               "utilization", "usage_cpu", "usage_mem_mb", "down")
 
 
 def fused_interval_scan(model: ClusterModel, lag: torch.Tensor,
@@ -65,32 +61,20 @@ def fused_interval_scan(model: ClusterModel, lag: torch.Tensor,
     ``[K, S]`` planes ``rates``/``lag_add``/``down_pre``/``down_post``/
     ``z1``/``z2`` are the host-precomputed control state of the K ticks.
 
-    Returns the :func:`step_batch_arrays` metrics stacked to
-    ``[len(METRIC_KEYS), K, S]``.
+    Returns the :func:`~repro_torch.dsp.simulator.step_batch_arrays`
+    metrics stacked to ``[len(METRIC_KEYS), K, S]``.
 
-    The loop runs exactly the K real ticks. The reference pads K to a
-    power-of-two multiple of a chunk and masks the padding ticks, because
-    each distinct K retraces its jitted scan; PyTorch runs eagerly and
-    compiles nothing per shape, so neither the padding nor the mask exists
-    here.
+    One call of :func:`repro_torch.kernels.ops.fused_interval` runs exactly
+    the K real ticks: one kernel launch on the card. The reference pads K
+    to a power-of-two multiple of a chunk and masks the padding ticks,
+    because each distinct K retraces its jitted scan; PyTorch runs eagerly
+    and the kernel takes K at run time, so neither the padding nor the
+    mask exists here.
     """
-    per_tick = []
-    for k in range(rates.shape[0]):
-        _, m = step_batch_arrays(
-            model, lag, lag_add[k], rates[k], workers, cpu_cores, memory_mb,
-            task_slots, cap_base, down_pre[k], down_post[k], z1[k], z2[k], dt)
-        # The tick's new_lag is the authoritative carry; its arithmetic is
-        # step_batch_arrays', op for op.
-        lag_k, w2, p2, _, flag = fused_tick(
-            lag, lag_add[k], rates[k], m["capacity"], down_pre[k], det_w,
-            det_p, det_y, det_lam, det_thresh, dt)
-        lag.copy_(lag_k)
-        det_w.copy_(w2)
-        det_p.copy_(p2)
-        torch.log1p(lag_k, out=det_y)
-        det_trig += flag
-        per_tick.append(torch.stack([m[key] for key in METRIC_KEYS]))
-    return torch.stack(per_tick, dim=1)
+    return ops.fused_interval(
+        model, lag, det_w, det_p, det_y, det_trig, rates, lag_add, down_pre,
+        down_post, z1, z2, workers, cpu_cores, memory_mb, task_slots,
+        cap_base, det_lam, det_thresh, dt)
 
 
 @SIM_ENGINES.register("fused")
@@ -129,6 +113,9 @@ class FusedSweepExecutor(SweepExecutorBase):
         self._det_y = torch.zeros(n, **f64)
         self._det_trig = torch.zeros(n, dtype=torch.int64, device=self.device)
         self._dev_cfg: Optional[tuple] = None     # rebuilt when configs move
+        #: step_interval calls: one fused_interval call (a launch on the
+        #: card) each
+        self.intervals_stepped = 0
 
     # -- device plumbing ----------------------------------------------------
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -226,6 +213,7 @@ class FusedSweepExecutor(SweepExecutorBase):
             self.model, self._lag, self._det_w, self._det_p, self._det_y,
             self._det_trig, *planes, *self._device_configs(), DET_LAMBDA,
             DET_THRESH, dt)
+        self.intervals_stepped += 1
         st.from_device(self._lag)
         out = dict(zip(METRIC_KEYS, ms.cpu().numpy()))
 

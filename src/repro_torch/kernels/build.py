@@ -33,29 +33,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _C = ctypes.c_void_p
 _D = ctypes.c_double
-#: ctypes signature of each source's C entry point (every pointer and the
+_I64, _I = ctypes.c_int64, ctypes.c_int
+#: ctypes signature of each C entry point, by source (every pointer and the
 #: stream as c_void_p, so ctypes does not cut them to 32 bits).
 SIGNATURES = {
-    "fused_tick": ("fused_tick_launch",
-                   [_C] * 8 + [_D, _D, _D, ctypes.c_int64] + [_C] * 6),
-    "rls_update": ("rls_update_launch",
-                   [_C] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
-                   + [_C] * 3),
-    "decode_attention": ("decode_attention_launch",
-                         [_C] * 6 + [ctypes.c_int64, ctypes.c_int64]
-                         + [ctypes.c_int] * 6 + [_C]),
-    "flash_attention": ("flash_attention_launch",
-                        [_C] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 5
-                        + [_C]),
-    "ssd_scan": ("ssd_scan_launch",
-                 [_C] * 9 + [ctypes.c_int64, ctypes.c_int64]
-                 + [ctypes.c_int] * 6 + [_C]),
-    "grouped_matmul": ("grouped_matmul_launch",
-                       [_C] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 5
-                       + [_C]),
-    "rmsnorm": ("fused_rmsnorm_launch",
-                [_C] * 5 + [ctypes.c_int64, ctypes.c_int, _D, ctypes.c_int,
-                            ctypes.c_int, _C]),
+    "fused_tick": {
+        "fused_tick_launch": [_C] * 8 + [_D, _D, _D, _I64] + [_C] * 6,
+        "fused_interval_launch": [_C] * 16 + [_D] * 9 + [_I64] * 2 + [_C] * 2,
+    },
+    "rls_update": {
+        "rls_update_launch": [_C] * 3 + [_I64, _I, _I] + [_C] * 3,
+        "arima_chunk_launch": [_C] * 12 + [_I64] * 2 + [_I] * 2 + [_C] * 3,
+    },
+    "decode_attention": {
+        "decode_attention_launch": [_C] * 6 + [_I64, _I64] + [_I] * 6 + [_C],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_C] * 4 + [_I64] * 3 + [_I] * 5 + [_C],
+    },
+    "ssd_scan": {
+        "ssd_scan_launch": [_C] * 9 + [_I64, _I64] + [_I] * 6 + [_C],
+    },
+    "grouped_matmul": {
+        "grouped_matmul_launch": [_C] * 4 + [_I64] + [_I] * 5 + [_C],
+    },
+    "rmsnorm": {
+        "fused_rmsnorm_launch": [_C] * 5 + [_I64, _I, _D, _I, _I, _C],
+    },
 }
 
 #: Wall spent building (where needed) and loading each library in this
@@ -130,13 +134,14 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` with its entry point typed."""
+    """The built library of ``csrc/<name>.cu`` with its entry points
+    typed."""
     t0 = time.perf_counter()
     lib = ctypes.CDLL(str(build(name)))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     load_wall_s[name] = time.perf_counter() - t0
     return lib
 

@@ -16,9 +16,10 @@ from . import grouped_matmul as _grouped_matmul
 from . import rls_update as _rls_update
 from . import rmsnorm as _rmsnorm
 from . import ssd_scan as _ssd_scan
-from .ref import (decode_attention_ref, flash_attention_ref,
-                  fused_rmsnorm_ref, fused_tick_ref, grouped_matmul_ref,
-                  rls_rank1_update_ref, ssd_scan_ref)
+from .ref import (arima_chunk_ref, decode_attention_ref,
+                  flash_attention_ref, fused_interval_ref, fused_rmsnorm_ref,
+                  fused_tick_ref, grouped_matmul_ref, rls_rank1_update_ref,
+                  ssd_scan_ref)
 
 
 def rls_rank1_update(P: torch.Tensor, phi: torch.Tensor, lam: torch.Tensor):
@@ -46,6 +47,45 @@ def fused_tick(lag: torch.Tensor, lag_add: torch.Tensor, rates: torch.Tensor,
         return _fused_tick.fused_tick(*args)
     raise ValueError(f"fused_tick takes CPU or CUDA tensors, got a tensor "
                      f"on {lag.device}")
+
+
+def arima_chunk(w: torch.Tensor, P: torch.Tensor, lags: torch.Tensor,
+                tails: torch.Tensor, count: torch.Tensor, last: torch.Tensor,
+                p: torch.Tensor, d: torch.Tensor, lam: torch.Tensor,
+                ridge: torch.Tensor, cap: torch.Tensor, vals: torch.Tensor):
+    """A chunk of the forecast bank's ARIMA ticks, state updated in place;
+    see :func:`repro_torch.kernels.ref.arima_chunk_ref` for the function
+    and the shapes."""
+    args = (w, P, lags, tails, count, last, p, d, lam, ridge, cap, vals)
+    if w.device.type == "cpu":
+        return arima_chunk_ref(*args)
+    if w.device.type == "cuda":
+        return _rls_update.arima_chunk(*args)
+    raise ValueError(f"arima_chunk takes CPU or CUDA tensors, got a tensor "
+                     f"on {w.device}")
+
+
+def fused_interval(model, lag: torch.Tensor, det_w: torch.Tensor,
+                   det_p: torch.Tensor, det_y: torch.Tensor,
+                   det_trig: torch.Tensor, rates: torch.Tensor,
+                   lag_add: torch.Tensor, down_pre: torch.Tensor,
+                   down_post: torch.Tensor, z1: torch.Tensor,
+                   z2: torch.Tensor, workers: torch.Tensor,
+                   cpu_cores: torch.Tensor, memory_mb: torch.Tensor,
+                   task_slots: torch.Tensor, cap_base: torch.Tensor,
+                   det_lam: float, det_thresh: float, dt: float):
+    """One fused-engine decision interval, state updated in place; see
+    :func:`repro_torch.kernels.ref.fused_interval_ref` for the function and
+    the shapes."""
+    args = (model, lag, det_w, det_p, det_y, det_trig, rates, lag_add,
+            down_pre, down_post, z1, z2, workers, cpu_cores, memory_mb,
+            task_slots, cap_base, det_lam, det_thresh, dt)
+    if lag.device.type == "cpu":
+        return fused_interval_ref(*args)
+    if lag.device.type == "cuda":
+        return _fused_tick.fused_interval(*args)
+    raise ValueError(f"fused_interval takes CPU or CUDA tensors, got a "
+                     f"tensor on {lag.device}")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

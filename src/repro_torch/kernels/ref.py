@@ -8,7 +8,7 @@ CUDA kernel against its plain version on the card.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import List, NamedTuple, Tuple, Union
 
 import torch
 
@@ -57,6 +57,169 @@ def fused_tick_ref(lag: torch.Tensor, lag_add: torch.Tensor,
     gain, pnew = rls_rank1_update_ref(P, phi, torch.full_like(y, lam))
     w2 = w + gain * err[:, None]
     return new_lag, w2, pnew, err, flag
+
+
+#: The metric keys a fused-engine interval returns, in the order they are
+#: stacked (the rows of :func:`fused_interval_ref`'s result).
+METRIC_KEYS = ("rate", "throughput", "capacity", "consumer_lag", "latency",
+               "utilization", "usage_cpu", "usage_mem_mb", "down")
+
+
+def fused_interval_ref(model, lag: torch.Tensor, det_w: torch.Tensor,
+                       det_p: torch.Tensor, det_y: torch.Tensor,
+                       det_trig: torch.Tensor, rates: torch.Tensor,
+                       lag_add: torch.Tensor, down_pre: torch.Tensor,
+                       down_post: torch.Tensor, z1: torch.Tensor,
+                       z2: torch.Tensor, workers: torch.Tensor,
+                       cpu_cores: torch.Tensor, memory_mb: torch.Tensor,
+                       task_slots: torch.Tensor, cap_base: torch.Tensor,
+                       det_lam: float, det_thresh: float,
+                       dt: float) -> torch.Tensor:
+    """K fused-engine ticks: each tick runs
+    :func:`~repro_torch.dsp.simulator.step_batch_arrays` for the metrics
+    and :func:`fused_tick_ref` for the lag carry and the detector.
+
+    ``lag [S]``, ``det_w [S, 2]``, ``det_p [S, 2, 2]``, ``det_y [S]`` and
+    ``det_trig [S]`` (int64) are the persistent state and are updated in
+    place; the ``[K, S]`` planes ``rates``/``lag_add``/``down_pre``/
+    ``down_post``/``z1``/``z2`` are the host-precomputed control state of
+    the K ticks, ``workers``..``cap_base`` the ``[S]`` config operands.
+    Returns the metrics stacked to ``[len(METRIC_KEYS), K, S]``.
+    """
+    from ..dsp.simulator import step_batch_arrays  # dsp imports kernels
+    per_tick = []
+    for k in range(rates.shape[0]):
+        _, m = step_batch_arrays(
+            model, lag, lag_add[k], rates[k], workers, cpu_cores, memory_mb,
+            task_slots, cap_base, down_pre[k], down_post[k], z1[k], z2[k], dt)
+        # The tick's new_lag is the authoritative carry; its arithmetic is
+        # step_batch_arrays', op for op.
+        lag_k, w2, p2, _, flag = fused_tick_ref(
+            lag, lag_add[k], rates[k], m["capacity"], down_pre[k], det_w,
+            det_p, det_y, det_lam, det_thresh, dt)
+        lag.copy_(lag_k)
+        det_w.copy_(w2)
+        det_p.copy_(p2)
+        torch.log1p(lag_k, out=det_y)
+        det_trig += flag
+        per_tick.append(torch.stack([m[key] for key in METRIC_KEYS]))
+    return torch.stack(per_tick, dim=1)
+
+
+class _ArimaMasks(NamedTuple):
+    """A chunk's constants of the ARIMA step, from the streams' orders."""
+    dims: torch.Tensor    # (B, p_max) bool: active lag dims
+    adim: torch.Tensor    # (B, k) bool: active dims incl. the bias
+    amask: torch.Tensor   # (B, k, k) bool: active block of P
+    cap: torch.Tensor     # (B,) trace cap
+    P_pin: torch.Tensor   # (B, k, k) ridge * I
+    ones: torch.Tensor    # (B, 1) the bias column of phi
+    d_lt: List[torch.Tensor]   # d_lt[j] = j < d, (B,) bool, j < d_max
+    pd: torch.Tensor      # (B,) p + d
+
+
+def _arima_masks(p: torch.Tensor, d: torch.Tensor, ridge: torch.Tensor,
+                 cap: torch.Tensor, k: int, d_max: int) -> _ArimaMasks:
+    B, p_max = p.shape[0], k - 1
+    dev = p.device
+    dims = torch.arange(p_max, device=dev)[None, :] < p[:, None]
+    adim = torch.cat([dims, torch.ones((B, 1), dtype=torch.bool,
+                                       device=dev)], dim=1)
+    P_pin = ridge[:, None, None] * torch.eye(k, dtype=torch.float64,
+                                             device=dev)
+    return _ArimaMasks(dims, adim, adim[:, :, None] & adim[:, None, :], cap,
+                       P_pin, torch.ones((B, 1), dtype=torch.float64,
+                                         device=dev),
+                       [j < d for j in range(d_max)], p + d)
+
+
+def _arima_step(core, params, c: _ArimaMasks, values: torch.Tensor):
+    """One masked online step for every stream (mirror of
+    :meth:`repro_torch.core.forecast.OnlineARIMA.update`), minus the residual
+    ring: the chunk pushes every tick's ``(resid, do_rls)`` in one scatter.
+    A non-finite value is a no-op for its stream."""
+    w, P, lags, tails, count, last = core
+    p, d, lam, _ridge = params
+    d_max = tails.shape[1]
+    valid = torch.isfinite(values)
+    v = torch.where(valid, values, 0.0)
+
+    # Incremental differencing cascade: diffs[j] = the new sample's
+    # j-times-differenced value, from the per-order tails.
+    diffs = [v]
+    for j in range(d_max):
+        diffs.append(diffs[j] - tails[:, j])
+    target = torch.gather(torch.stack(diffs, dim=1), 1, d[:, None])[:, 0]
+
+    phi = torch.cat([torch.where(c.dims, lags, 0.0), c.ones], dim=1)
+    gain, P_new = rls_rank1_update_ref(P, phi, lam)
+    resid = target - (w * phi).sum(-1)
+    w_new = w + gain * resid[:, None]
+    # Re-symmetrize (the rank-1 downdate is symmetric in exact arithmetic;
+    # roundoff would otherwise accumulate into an indefinite P), then apply
+    # the anti-windup trace clamp over the active dims (P_TRACE_CAP).
+    P_new = 0.5 * (P_new + P_new.transpose(1, 2))
+    diag = torch.diagonal(P_new, dim1=1, dim2=2)
+    tr = torch.where(c.adim, diag, 0.0).sum(1)
+    P_new = P_new * torch.where(tr > c.cap, c.cap / tr, 1.0)[:, None, None]
+    # Padded dims stay pinned at their ridge * I initialization (the /λ in
+    # the covariance update would otherwise inflate them without bound).
+    P_new = torch.where(c.amask, P_new, c.P_pin)
+    # Safety net, mirroring the scalar oracle: a diverged stream restarts
+    # its tracker from the prior instead of poisoning later updates.
+    ok = (torch.isfinite(w_new).all(1)
+          & torch.isfinite(P_new).flatten(1).all(1))
+    w_new = torch.where(ok[:, None], w_new, 0.0)
+    P_new = torch.where(ok[:, None, None], P_new, c.P_pin)
+
+    # RLS fires once p + d + 1 samples exist (count is pre-increment).
+    do_rls = valid & (count >= c.pd)
+    w = torch.where(do_rls[:, None], w_new, w)
+    P = torch.where(do_rls[:, None, None], P_new, P)
+
+    # The differenced series gains a value once count >= d.
+    defined = valid & (count >= d)
+    shifted = torch.cat([target[:, None], lags[:, :-1]], dim=1)
+    lags = torch.where(defined[:, None], shifted, lags)
+    if d_max:
+        tails = torch.stack([
+            torch.where(valid & (count >= j) & c.d_lt[j], diffs[j],
+                        tails[:, j]) for j in range(d_max)], dim=1)
+    last = torch.where(valid, v, last)
+    count = count + valid.to(count.dtype)
+    return (w, P, lags, tails, count, last), resid, do_rls
+
+
+def arima_chunk_ref(w: torch.Tensor, P: torch.Tensor, lags: torch.Tensor,
+                    tails: torch.Tensor, count: torch.Tensor,
+                    last: torch.Tensor, p: torch.Tensor, d: torch.Tensor,
+                    lam: torch.Tensor, ridge: torch.Tensor, cap: torch.Tensor,
+                    vals: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T ticks of the forecast bank's ARIMA step (AR(p) on the
+    d-differenced series, RLS-tracked) for B streams, one batched step a
+    tick.
+
+    State ``w (B, k)``, ``P (B, k, k)``, ``lags (B, k - 1)`` (the
+    differenced lags, newest first), ``tails (B, d_max)`` (the last value
+    of each differenced series), ``count (B,)`` int64 and ``last (B,)`` is
+    updated in place. ``p``, ``d`` (int64), ``lam`` (forgetting), ``ridge``
+    (the prior's scale) and ``cap`` (the trace cap) are ``(B,)``;
+    ``vals (T, B)`` holds the ticks, NaN where a stream has none (a no-op
+    for it). Returns ``(resid (T, B), do_rls (T, B))``: each tick's
+    residual and whether its RLS update fired.
+    """
+    c = _arima_masks(p, d, ridge, cap, w.shape[1], tails.shape[1])
+    params = (p, d, lam, ridge)
+    core = (w, P, lags, tails, count, last)
+    resids, dos = [], []
+    for t in range(vals.shape[0]):
+        core, resid, do = _arima_step(core, params, c, vals[t])
+        resids.append(resid)
+        dos.append(do)
+    for buf, new in zip((w, P, lags, tails, count, last), core):
+        buf.copy_(new)
+    return torch.stack(resids), torch.stack(dos)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,9 +6,9 @@ has no JAX, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-They hold the fused-tick, RLS, decode-attention, SSD-scan,
-flash-attention, grouped-matmul and fused-RMSNorm kernels against their
-plain versions, and the fused engine, a short Demeter sweep, small serving
+They hold the fused-tick, fused-interval, RLS, ARIMA-chunk,
+decode-attention, SSD-scan, flash-attention, grouped-matmul and
+fused-RMSNorm kernels against their plain versions, and the fused engine, a short Demeter sweep, small serving
 runs (dense, mamba2, zamba2, deepseek-moe, deepseek-v2-lite), hubert's
 ``encode`` and pixtral's ``train_loss`` on the card against the same runs
 on the CPU.
@@ -34,9 +34,12 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rls_update as rls_mod
 from repro_torch.kernels import rmsnorm as rms_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
-from repro_torch.kernels.ref import (decode_attention_ref,
-                                     flash_attention_ref, fused_rmsnorm_ref,
-                                     fused_tick_ref, grouped_matmul_ref,
+from repro_torch.dsp import ClusterModel
+from repro_torch.kernels.ref import (METRIC_KEYS, arima_chunk_ref,
+                                     decode_attention_ref,
+                                     flash_attention_ref, fused_interval_ref,
+                                     fused_rmsnorm_ref, fused_tick_ref,
+                                     grouped_matmul_ref,
                                      rls_rank1_update_ref, ssd_scan_ref)
 from repro_torch.models import encode, init_params, train_loss
 from repro_torch.serving import Request, ServingEngine
@@ -98,12 +101,16 @@ def test_fused_engine_on_card_matches_cpu(cuda):
     runs = {}
     for dev in ("cuda", "cpu"):
         eng = SweepEngine(specs, config=EngineConfig(device=dev))
-        before = kmod.fused_tick.launches
+        before = (kmod.fused_interval.launches, kmod.fused_tick.launches)
         res = eng.run()
         runs[dev] = (res, eng.executor.anomaly_triggers,
-                     kmod.fused_tick.launches - before)
-    assert runs["cuda"][2] == runs["cuda"][0].n_steps   # one launch a tick
-    assert runs["cpu"][2] == 0
+                     kmod.fused_interval.launches - before[0],
+                     eng.executor.intervals_stepped,
+                     kmod.fused_tick.launches - before[1])
+    # one launch an interval, and the per-tick kernel off the path
+    assert runs["cuda"][2] == runs["cuda"][3] > 0
+    assert runs["cuda"][4] == 0
+    assert runs["cpu"][2] == runs["cpu"][4] == 0
     for a, b in zip(runs["cuda"][0].scenarios, runs["cpu"][0].scenarios):
         assert a.allclose(b, rtol=1e-12, atol=1e-12), a.name
     np.testing.assert_array_equal(runs["cuda"][1], runs["cpu"][1])
@@ -155,6 +162,211 @@ def test_rls_kernel_rejects_bad_operands(cuda):
         rls_mod.rls_rank1_update(big, big[:, 0], lam[:1])
 
 
+def _interval_operands(S, K, seed, device):
+    """One fused-engine interval's operands (state mid-run, mixed configs,
+    down rows, rollback lag), as tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    down_pre = rng.random((K, S)) < 0.15
+    down_post = down_pre & (rng.random((K, S)) < 0.7)
+    z2 = np.abs(rng.normal(size=(K, S)))
+    z2[down_post] = 0.0
+    a = dict(
+        lag=rng.uniform(0.0, 2e5, S) * (rng.random(S) < 0.6),
+        det_w=rng.normal(size=(S, 2)) * 0.1,
+        det_p=np.broadcast_to(10.0 * np.eye(2), (S, 2, 2)).copy(),
+        det_y=rng.uniform(0.0, 12.0, S),
+        det_trig=rng.integers(0, 5, S).astype(np.int64),
+        rates=rng.uniform(1e4, 9e4, (K, S)),
+        lag_add=rng.uniform(0.0, 5e4, (K, S)) * (rng.random((K, S)) < 0.1),
+        down_pre=down_pre, down_post=down_post,
+        z1=rng.normal(size=(K, S)), z2=z2,
+        workers=rng.integers(1, 25, S).astype(np.float64),
+        cpu_cores=rng.integers(1, 5, S).astype(np.float64),
+        memory_mb=rng.choice([1024.0, 2048.0, 4096.0], S),
+        task_slots=rng.integers(1, 4, S).astype(np.float64),
+        cap_base=rng.uniform(1e4, 8e4, S))
+    return {k: torch.from_numpy(v).to(device) for k, v in a.items()}
+
+
+INTERVAL_STATE = ("lag", "det_w", "det_p", "det_y", "det_trig")
+INTERVAL_REST = ("rates", "lag_add", "down_pre", "down_post", "z1", "z2",
+                 "workers", "cpu_cores", "memory_mb", "task_slots",
+                 "cap_base")
+
+
+def _run_interval(fn, t):
+    """``fn`` on a copy of the operands; returns (metrics, state)."""
+    state = {k: t[k].clone() for k in INTERVAL_STATE}
+    out = fn(ClusterModel(), *state.values(), *(t[k] for k in INTERVAL_REST),
+             LAM, THRESH, DT)
+    torch.cuda.synchronize()
+    return out, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,K", [(8, 12), (37, 1), (288, 12), (37, 100),
+                                 (1000, 5)])
+def test_interval_kernel_matches_plain_version(cuda, S, K):
+    t = _interval_operands(S, K, seed=S + K, device=cuda)
+    before = kmod.fused_interval.launches
+    got, got_state = _run_interval(ops.fused_interval, t)
+    assert kmod.fused_interval.launches == before + 1
+    want, want_state = _run_interval(fused_interval_ref, t)
+    assert got.shape == (len(METRIC_KEYS), K, S)
+    for q, key in enumerate(METRIC_KEYS):      # bit for bit
+        assert torch.equal(got[q], want[q]), key
+    assert torch.equal(got_state["lag"], want_state["lag"])
+    for key in ("det_w", "det_p", "det_y"):
+        torch.testing.assert_close(got_state[key], want_state[key],
+                                   rtol=1e-12, atol=1e-12, msg=key)
+    assert torch.equal(got_state["det_trig"], want_state["det_trig"])
+    again, again_state = _run_interval(kmod.fused_interval, t)
+    assert torch.equal(again, got)
+    for key in INTERVAL_STATE:
+        assert torch.equal(again_state[key], got_state[key]), key
+
+
+@pytest.mark.cuda
+def test_interval_kernel_rejects_bad_operands(cuda):
+    t = _interval_operands(8, 3, seed=0, device=cuda)
+
+    def call(**over):
+        u = {**t, **over}
+        kmod.fused_interval(ClusterModel(),
+                            *(u[k] for k in INTERVAL_STATE + INTERVAL_REST),
+                            LAM, THRESH, DT)
+    with pytest.raises(TypeError, match="float64"):
+        call(z1=t["z1"].float())
+    with pytest.raises(TypeError, match="torch.bool"):
+        call(down_pre=t["down_pre"].double())
+    with pytest.raises(TypeError, match="torch.int64"):
+        call(det_trig=t["det_trig"].int())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(det_p=t["det_p"].transpose(1, 2))
+    with pytest.raises(ValueError, match="lag_add must have shape"):
+        call(lag_add=t["lag_add"][:2].contiguous())
+    with pytest.raises(ValueError, match="K >= 1"):
+        call(**{k: t[k][:0] for k in INTERVAL_REST[:6]})
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(cap_base=t["cap_base"].cpu())
+
+
+def _chunk_operands(B, k, T, seed, device):
+    """ARIMA family state after a warm-up and a (T, B) chunk of ticks in
+    thousands of events/s: orders p up to k - 1, depths 1 and 2, NaN gaps
+    and padding ticks, and one stream whose 1e308 spike makes the step
+    overflow (the divergence reset)."""
+    rng = np.random.default_rng(seed)
+    p_max = k - 1
+    p = rng.integers(1, p_max + 1, B)
+    p[0] = p_max
+    d = rng.integers(1, 3, B)
+    ridge = rng.uniform(1.0, 20.0, B)
+    lam = rng.uniform(0.97, 1.0, B)
+    ts = np.arange(T + 40)[:, None]
+    vals = 40.0 + 8.0 * np.sin(2 * np.pi * ts / 37.0 + rng.uniform(0, 6, B)) \
+        + rng.normal(0, 0.5, (T + 40, B))
+    vals[rng.random(vals.shape) < 0.05] = np.nan
+    chunk = vals[40:]
+    if T >= 4:
+        chunk[-2:] = np.nan                         # padding ticks
+    spike = max(T - 4, 0)
+    chunk[spike, -1] = 1e308
+    if spike + 1 < T:
+        chunk[spike + 1, -1] = 40.0
+    f64 = dict(dtype=torch.float64, device=device)
+    state = [torch.zeros((B, k), **f64),
+             torch.as_tensor(ridge[:, None, None] * np.eye(k), **f64),
+             torch.zeros((B, p_max), **f64), torch.zeros((B, 2), **f64),
+             torch.zeros(B, dtype=torch.int64, device=device),
+             torch.zeros(B, **f64)]
+    params = [torch.as_tensor(p, device=device),
+              torch.as_tensor(d, device=device), torch.as_tensor(lam, **f64),
+              torch.as_tensor(ridge, **f64)]
+    cap = params[3] * (params[0] + 1).double() * 1e4
+    warm = torch.as_tensor(vals[:40], **f64)
+    arima_chunk_ref(*state, *params, cap, warm)
+    return state, params + [cap], torch.as_tensor(vals[40:], **f64)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN payloads included."""
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return torch.equal(a, b)
+
+
+def _rel(got, want, stream_dim=0):
+    """Largest difference relative to each stream's largest finite
+    magnitude; non-finite entries must match in place."""
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    g, w, f = (x.movedim(stream_dim, 0).reshape(x.shape[stream_dim], -1)
+               for x in (got, want, fin))
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    scale = torch.where(f, w.abs(), zero).amax(1).clamp_min(1e-300)
+    diff = torch.where(f, (g - w).abs(), zero).amax(1)
+    return float((diff / scale).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,k,T", [(8, 9, 12), (1, 5, 4), (288, 17, 12),
+                                   (37, 9, 128), (13, 3, 7), (5, 33, 9),
+                                   (300, 5, 1)])
+def test_arima_chunk_kernel_matches_plain_version(cuda, B, k, T):
+    state, params, vals = _chunk_operands(B, k, T, seed=B * k + T,
+                                          device=cuda)
+    got_state = [t.clone() for t in state]
+    want_state = [t.clone() for t in state]
+    before = rls_mod.arima_chunk.launches
+    got = ops.arima_chunk(*got_state, *params, vals)
+    torch.cuda.synchronize()
+    assert rls_mod.arima_chunk.launches == before + 1
+    want = arima_chunk_ref(*want_state, *params, vals)
+    assert got[0].shape == (T, B) and got[1].dtype == torch.bool
+    assert torch.equal(got[1], want[1])                       # do_rls
+    assert _rel(got[0], want[0], stream_dim=1) <= 1e-12       # resid
+    for name, g, r in zip(("w", "P", "lags", "tails", "count", "last"),
+                          got_state, want_state):
+        if g.dtype == torch.int64:
+            assert torch.equal(g, r), name
+        else:
+            assert _rel(g, r) <= 1e-12, name
+    again_state = [t.clone() for t in state]
+    again = rls_mod.arima_chunk(*again_state, *params, vals)
+    torch.cuda.synchronize()
+    assert _same_bits(again[0], got[0]) and torch.equal(again[1], got[1])
+    for g, a in zip(got_state, again_state):
+        assert _same_bits(g, a)
+
+
+@pytest.mark.cuda
+def test_arima_chunk_kernel_rejects_bad_operands(cuda):
+    state, params, vals = _chunk_operands(8, 9, 4, seed=0, device=cuda)
+
+    def call(i, t):
+        args = state + params + [vals]
+        args[i] = t
+        rls_mod.arima_chunk(*args)
+    with pytest.raises(TypeError, match="float64"):
+        call(1, state[1].float())
+    with pytest.raises(TypeError, match="torch.int64"):
+        call(6, params[0].int())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(1, state[1].transpose(1, 2))
+    with pytest.raises(ValueError, match="lags must have shape"):
+        call(2, state[2][:, :3].contiguous())
+    with pytest.raises(ValueError, match="T >= 1"):
+        call(11, vals[:0])
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(10, params[4].cpu())
+    with pytest.raises(ValueError, match="d_max <= 32"):
+        call(3, torch.zeros((8, 33), dtype=torch.float64, device=cuda))
+    big = torch.zeros((8, 65), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="k <= 64"):
+        call(0, big)
+
+
 @pytest.mark.cuda
 def test_demeter_sweep_on_card_matches_cpu(cuda):
     specs = [ScenarioSpec(trace=make_trace(k, duration_s=1.5 * 3600.0),
@@ -165,15 +377,18 @@ def test_demeter_sweep_on_card_matches_cpu(cuda):
     hp = DemeterHyperParams(profile_interval_s=600)
     runs = {}
     for dev in ("cuda", "cpu"):
-        before = rls_mod.rls_rank1_update.launches
+        before = (rls_mod.arima_chunk.launches,
+                  rls_mod.rls_rank1_update.launches)
         eng = SweepEngine(specs, config=EngineConfig(
             device=dev, fit_backend="scalar", hp=hp))
         res = eng.run()
-        runs[dev] = (res, rls_mod.rls_rank1_update.launches - before,
-                     eng.forecast_bank.arima_ticks)
-    (card, launches, ticks), (cpu, cpu_launches, _) = runs["cuda"], \
-        runs["cpu"]
-    assert launches == ticks > 0 and cpu_launches == 0
+        runs[dev] = (res, rls_mod.arima_chunk.launches - before[0],
+                     eng.forecast_bank.arima_chunks,
+                     rls_mod.rls_rank1_update.launches - before[1])
+    (card, launches, chunks, per_step), (cpu, cpu_launches, _, _) = \
+        runs["cuda"], runs["cpu"]
+    # one launch a chunk, and the per-step kernel off the path
+    assert launches == chunks > 0 and per_step == 0 and cpu_launches == 0
     assert card.n_model_fits == cpu.n_model_fits > 0
     assert card.n_forecast_updates == cpu.n_forecast_updates
     for a, b in zip(card.scenarios, cpu.scenarios):

@@ -183,7 +183,7 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_is_built_from_source():
                              causal=True)
     assert (build.CSRC_DIR / "flash_attention.cu").is_file()
     assert build.library_path("flash_attention").parent == build.BUILD_DIR
-    assert build.SIGNATURES["flash_attention"][0] == "flash_attention_launch"
+    assert "flash_attention_launch" in build.SIGNATURES["flash_attention"]
 
 
 @pytest.mark.parametrize("D,dtype,design,padded", [

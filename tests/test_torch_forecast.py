@@ -4,6 +4,9 @@ The same seeded NumPy inputs go through the reference and the port:
 
 * the K1 plain version (``rls_rank1_update_ref``) against the reference's
   Pallas kernel in interpret mode, float64 at 1e-12 and float32 at 1e-5;
+* the ARIMA chunk (``arima_chunk_ref`` and the residual ring around it)
+  against the reference's ``_arima_chunk`` at 1e-12 of each array's scale,
+  with NaN ticks, padding ticks and a diverging stream;
 * each forecaster family of the port's ``ForecastBank`` (CPU) against the
   port's scalar zoo and against the reference's bank at rtol 1e-9, with
   NaN gaps, a queue-cap flush, ``reset_rows`` and state carried across by
@@ -29,17 +32,22 @@ import torch  # noqa: E402
 
 from repro.core import anomaly as ref_anomaly  # noqa: E402
 from repro.core import forecast as ref_forecast  # noqa: E402
+from repro.core import forecast_bank as ref_bank  # noqa: E402
 from repro.core.forecast_bank import ForecastBank as RefBank  # noqa: E402
 from repro.dsp.executor import profile_one as ref_profile_one  # noqa: E402
 from repro.dsp.simulator import ClusterModel as RefModel  # noqa: E402
 from repro.dsp.simulator import JobConfig as RefJob  # noqa: E402
 from repro.kernels.rls_update import rls_rank1_update  # noqa: E402
 from repro_torch.core import anomaly, forecast  # noqa: E402
+from repro_torch.core import forecast_bank as port_bank  # noqa: E402
 from repro_torch.core.forecast_bank import (_QUEUE_CAP,  # noqa: E402
                                             ForecastBank, make_forecaster)
 from repro_torch.dsp import ClusterModel, JobConfig, profile_one  # noqa: E402
 from repro_torch.interop import forecast_family_from_arrays  # noqa: E402
-from repro_torch.kernels.ref import rls_rank1_update_ref  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rls_update as cuda_rls  # noqa: E402
+from repro_torch.kernels.ref import (arima_chunk_ref,  # noqa: E402
+                                     rls_rank1_update_ref)
 
 #: forecaster kinds with non-default parameters that exercise the padded
 #: layouts (p below p_max, d = 2, seasonal rings below their bucket)
@@ -152,11 +160,118 @@ def test_queue_cap_flush_and_chunk_ticks():
             s.update(vals[t, r])
     assert bank.n_updates == _QUEUE_CAP * len(rows)      # the forced flush
     assert bank.arima_ticks == _QUEUE_CAP
+    assert bank.arima_chunks == 1
     for v, s in zip(views, scalars):
         np.testing.assert_allclose(v.forecast(10), s.forecast(10),
                                    rtol=1e-9, atol=1e-9)
     assert bank.n_updates == n * len(rows)
     assert bank.arima_ticks == _QUEUE_CAP + 40           # 40 = 10 x 4
+    assert bank.arima_chunks == 2                        # one call each
+
+
+def _arima_case(k, d, seed, B=11):
+    """Seeded ARIMA family state at its prior and two chunks of ticks.
+
+    Orders p from 1 to k - 1, all at depth d; NaN gaps, and the first
+    chunk ends in two all-NaN padding ticks. The last stream spikes to
+    1e308 on its next-to-last tick: on the last one its regressor
+    overflows the step, and the divergence guard resets it to its prior."""
+    rng = np.random.default_rng(seed)
+    p_max, d_max = k - 1, max(d, 1)
+    p = rng.integers(1, p_max + 1, B)
+    p[0] = p_max
+    lam = rng.uniform(0.97, 1.0, B)
+    ridge = rng.uniform(1.0, 20.0, B)
+    state = dict(w=np.zeros((B, k)), P=ridge[:, None, None] * np.eye(k),
+                 lags=np.zeros((B, p_max)), tails=np.zeros((B, d_max)),
+                 count=np.zeros(B, np.int64), last=np.zeros(B),
+                 err=np.zeros((B, forecast.ERR_WINDOW)),
+                 err_n=np.zeros(B, np.int64))
+    params = dict(p=p.astype(np.int64), d=np.full(B, d, np.int64), lam=lam,
+                  ridge=ridge)
+    vals = np.stack([_stream(rng, 20) for _ in range(B)], axis=1)
+    vals[-2:, -1] = (1e308, 40.0)
+    chunks = [vals[:12].copy(), vals[12:].copy()]
+    chunks[0][-2:] = np.nan
+    return state, params, chunks
+
+
+@pytest.mark.parametrize("d", [0, 1, 2])
+@pytest.mark.parametrize("k", [5, 9, 17])
+def test_arima_chunk_matches_reference_chunk(k, d):
+    """Two chunks through the port's ``_arima_chunk`` (``ops.arima_chunk``,
+    on the CPU its plain version, then the residual ring) and the
+    reference's (``use_pallas=False``): the counts equal, the diverging
+    stream reset, and every other state array within 1e-12 of its scale
+    (each stream's largest finite magnitude in it). At d = 0 the bar is
+    5e-11: an AR on the levels (about 40 here) has lags and a bias that
+    are nearly collinear, so a sum taken in another order moves w by up to
+    1.0e-11 of its scale after 20 ticks; the reference's own compiled and
+    eager runs (which sum in different orders too) differ by up to 7.4e-12
+    of it there, and by 7e-15 at d >= 1."""
+    state, params, chunks = _arima_case(k, d, seed=100 * k + d)
+    with jax.experimental.enable_x64():
+        jstate = ref_bank._ArimaState(**{n: jnp.asarray(v)
+                                         for n, v in state.items()})
+        jparams = ref_bank._ArimaParams(**{n: jnp.asarray(v)
+                                           for n, v in params.items()})
+        want = []
+        for vals in chunks:
+            jstate = ref_bank._arima_chunk(jstate, jparams, jnp.asarray(vals),
+                                           use_pallas=False)
+            want.append([np.asarray(x) for x in jstate])
+    tstate = port_bank._ArimaState(**{n: torch.from_numpy(v.copy())
+                                      for n, v in state.items()})
+    tparams = port_bank._ArimaParams(**{n: torch.from_numpy(v.copy())
+                                        for n, v in params.items()})
+    const = port_bank._arima_const(tparams, k, state["tails"].shape[1])
+    rel = 5e-11 if d == 0 else 1e-12
+    for vals, ref_arrays in zip(chunks, want):
+        tstate = port_bank._arima_chunk(tstate, tparams, const,
+                                        torch.from_numpy(vals))
+        for name, g, r in zip(tstate._fields, tstate, ref_arrays):
+            g = g.numpy()
+            if g.dtype == np.int64:
+                np.testing.assert_array_equal(g, r, err_msg=name)
+                continue
+            for b, (gb, rb) in enumerate(zip(g, r)):
+                scale = np.max(np.abs(rb[np.isfinite(rb)]), initial=0.0)
+                np.testing.assert_allclose(gb, rb, rtol=0.0,
+                                           atol=rel * scale,
+                                           err_msg=f"{name}, stream {b}")
+    # the diverging stream fired and was reset to its prior
+    assert tstate.err_n[-1] > 0
+    np.testing.assert_array_equal(tstate.w[-1].numpy(), 0.0)
+    np.testing.assert_array_equal(
+        tstate.P[-1].numpy(), params["ridge"][-1] * np.eye(k))
+
+
+def _chunk_tensors(k, d, device="cpu"):
+    state, params, chunks = _arima_case(k, d, seed=7)
+    t = {n: torch.from_numpy(v.copy()).to(device)
+         for n, v in {**state, **params}.items() if n not in ("err", "err_n")}
+    cap = t["ridge"] * (t["p"] + 1).to(torch.float64) * forecast.P_TRACE_CAP
+    args = [t[n] for n in ("w", "P", "lags", "tails", "count", "last", "p",
+                           "d", "lam", "ridge")]
+    return args + [cap, torch.from_numpy(chunks[0]).to(device)]
+
+
+def test_ops_routes_cpu_chunks_to_the_plain_version():
+    got_args, want_args = _chunk_tensors(9, 1), _chunk_tensors(9, 1)
+    got = ops.arima_chunk(*got_args)
+    want = arima_chunk_ref(*want_args)
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    for g, r in zip(got_args[:6], want_args[:6]):     # state, in place
+        assert torch.equal(g, r)
+    assert got[1].dtype == torch.bool and got[0].shape == (12, 11)
+
+
+def test_chunk_dispatch_refuses_other_devices_and_cpu_in_the_wrapper():
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.arima_chunk(*_chunk_tensors(5, 2, device="meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_rls.arima_chunk(*_chunk_tensors(5, 2))
 
 
 @pytest.mark.parametrize("kind", sorted(FAMILIES))
