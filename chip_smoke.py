@@ -122,7 +122,27 @@ Phases, each of which exits non-zero on failure:
     multi-head latent attention, a 512-wide latent cache), phase 19's
     traffic; K6 launches 3 x 26 times per call, and one absorbed decode
     step equals the naive path from the same cache within 2e-2;
-22. deepseek-v2-lite, card against CPU: as phase 20.
+22. deepseek-v2-lite, card against CPU: as phase 20;
+23. the detector bank: a ``DetectorBank`` of 1 024 streams (the fleet
+    service's slab) on the card over 1 080 samples (18 h of 60-s epochs),
+    a quarter of the streams with outages to zero, half with NaN gaps and
+    an eighth inactive half the time; flags equal to the port's CPU bank
+    on every sample and the first 64 streams' equal to ``MetricDetector``;
+    the state one sample at a time from the CPU bank's (every 108th
+    sample) within 1e-12 of each stream's scale; K1 (``arima_chunk``,
+    phase 3 at the detector's shapes) launched once per ``observe``; the
+    host wall and device time per ``observe``;
+24. the paper's per-cell protocol: ``run_experiment`` for static,
+    reactive, ds2 and demeter on ysb and tsw at the paper's 18 h (dt = 5
+    s, a failure every 45 minutes, seed 0) under ``EngineConfig()``;
+    finite results, one failure record per failure, profiling cost for
+    Demeter only, Demeter's K1 launches equal to its forecast bank's ARIMA
+    chunks; a Table-3 row each;
+25. card against CPU: ``run_experiment`` of the four methods on ysb (2 h,
+    seed 3, scalar GP fits) on ``cuda`` and ``cpu`` (arrays at rtol 1e-9,
+    equal reconfigurations and failure records); phase 7's grid with the
+    bank detector against phase 7's card run, and on the scalar engine
+    against the batched engine, at rtol 1e-9.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
@@ -130,7 +150,10 @@ The last three lines of standard output are the ``nvidia-smi`` line, the
 and K2 on the Demeter path, as ``arima_chunk`` and ``fused_interval``, K3
 on the qwen2-7b serving path, K5 on the mamba2-1.3b one, K4 on the
 hubert-xlarge encoder path, K6 on the deepseek-moe-16b one) beside its
-times at that path's shapes. ``fused_tick`` and ``rls_update`` keep their
+times at that path's shapes; ``arima_chunk`` also lists, under
+``paths``, its launches on the detector bank's path (phase 23, beside its
+times at 1 024 streams) and on ``run_experiment``'s Demeter cells (phase
+24). ``fused_tick`` and ``rls_update`` keep their
 phase-3 times with the launches the Demeter path counted, and K7, which
 no model of the reference calls, those counted on the deepseek-moe-16b
 run: the script fails unless these three are 0.
@@ -200,6 +223,20 @@ RLS_ORDERS = (5, 9, 17)
 CHUNK_STREAMS, CHUNK_TICKS = (8, 288), (4, 12, 128)
 #: the forecast bank's default ARIMA order p = 8 gives k = 9
 MAIN_K = 9
+#: K1 at the detector bank's shapes: a chunk of one tick a sample, order
+#: p = 4 (k = 5), d = 1; two streams in a profiling clone's RecoveryTracker
+#: (throughput and consumer lag) and the fleet service's slab of 1 024
+DETECTOR_K, DETECTOR_CHUNKS = 5, ((2, 1), (1024, 1))
+#: Phase 23: the fleet's slab (FleetConfig.capacity) over 18 h of its 60 s
+#: epochs; the first DETECTOR_SCALAR streams also through MetricDetector;
+#: the state is held one sample at a time from the CPU bank's state at
+#: every DETECTOR_CHECK_EVERY-th sample
+DETECTOR_STREAMS, DETECTOR_SAMPLES = 1024, 1080
+DETECTOR_SCALAR, DETECTOR_CHECK_EVERY = 64, 108
+#: Phase 24: the paper's per-cell protocol, each method on each trace
+PAPER_METHODS = ("static", "reactive", "ds2", "demeter")
+#: Phase 25: run_experiment card against CPU (ysb, 2 h, seed 3)
+PROTOCOL_CARD_VS_CPU = (2 * 3600.0, 3)
 #: Demeter main path width: paper seeds (2 scenarios each; seed 0 alone is
 #: the paper's own two 18 h runs, §3.4, Figs. 5-6). On NVIDIA H100 80GB
 #: HBM3, 700.00 W the path took 75.0 s at 1 seed and 153.0 s at 3 (about
@@ -650,12 +687,16 @@ def check_fused_interval(S: int, K: int) -> dict:
             "ptxas": ptxas_of("fused_interval_kernel")}
 
 
-def chunk_operands(B: int, k: int, T: int, seed: int, device):
+def chunk_operands(B: int, k: int, T: int, seed: int, device,
+                   detector: bool = False):
     """The ARIMA family's state after a 40-tick warm-up and a (T, B) chunk
     of ticks in thousands of events/s: orders p up to k - 1, depths 1 and
     2, 5% NaN gaps, two padding ticks at the end of a chunk of 4 or more,
     and one stream whose 1e308 spike overflows its next step (the
-    divergence reset). Returns (state, params with the trace cap, vals)."""
+    divergence reset). ``detector`` gives every stream the detector bank's
+    model instead (p = k - 1, d = 1: one tail, forgetting 0.995, ridge 10)
+    and no spike.
+    Returns (state, params with the trace cap, vals)."""
     import numpy as np
     import torch
     from repro_torch.kernels.ref import arima_chunk_ref
@@ -665,6 +706,9 @@ def chunk_operands(B: int, k: int, T: int, seed: int, device):
     d = rng.integers(1, 3, B)
     ridge = rng.uniform(1.0, 20.0, B)
     lam = rng.uniform(0.97, 1.0, B)
+    if detector:
+        p, d = np.full(B, k - 1), np.ones(B, np.int64)
+        ridge, lam = np.full(B, 10.0), np.full(B, 0.995)
     ts = np.arange(T + 40)[:, None]
     vals = 40.0 + 8.0 * np.sin(2 * np.pi * ts / 37.0 + rng.uniform(0, 6, B)) \
         + rng.normal(0, 0.5, (T + 40, B))
@@ -673,13 +717,15 @@ def chunk_operands(B: int, k: int, T: int, seed: int, device):
     if T >= 4:
         chunk[-2:] = np.nan
     spike = max(T - 4, 0)
-    chunk[spike, -1] = 1e308
-    if spike + 1 < T:
-        chunk[spike + 1, -1] = 40.0
+    if not detector:
+        chunk[spike, -1] = 1e308
+        if spike + 1 < T:
+            chunk[spike + 1, -1] = 40.0
     f64 = dict(dtype=torch.float64, device=device)
     state = [torch.zeros((B, k), **f64),
              torch.as_tensor(ridge[:, None, None] * np.eye(k), **f64),
-             torch.zeros((B, k - 1), **f64), torch.zeros((B, 2), **f64),
+             torch.zeros((B, k - 1), **f64),
+             torch.zeros((B, 1 if detector else 2), **f64),
              torch.zeros(B, dtype=torch.int64, device=device),
              torch.zeros(B, **f64)]
     params = [torch.as_tensor(p, device=device),
@@ -690,17 +736,22 @@ def chunk_operands(B: int, k: int, T: int, seed: int, device):
     return state, params + [cap], torch.as_tensor(chunk, **f64)
 
 
-def rel_by_stream(got, want, stream_dim: int = 0) -> float:
+def rel_by_stream(got, want, stream_dim: int = 0, also=None) -> float:
     """The largest difference relative to each stream's largest finite
-    magnitude; fails unless the non-finite entries match in place."""
+    magnitude in ``want`` (and in ``also``, where given: the same array
+    before the step that made ``want``); fails unless the non-finite
+    entries match in place."""
     import torch
     fin = torch.isfinite(want)
     if not torch.equal(fin, torch.isfinite(got)):
         fail("non-finite entries differ from the plain version's")
-    g, w, f = (x.movedim(stream_dim, 0).reshape(x.shape[stream_dim], -1)
-               for x in (got, want, fin))
+    mag = want.abs() if also is None else torch.maximum(want.abs(),
+                                                        also.abs())
+    g, w, f, m = (x.movedim(stream_dim, 0).reshape(x.shape[stream_dim], -1)
+                  for x in (got, want, fin, mag))
     zero = torch.zeros((), dtype=w.dtype, device=w.device)
-    scale = torch.where(f, w.abs(), zero).amax(1).clamp_min(1e-300)
+    scale = torch.where(f & torch.isfinite(m), m, zero).amax(1) \
+        .clamp_min(1e-300)
     return float((torch.where(f, (g - w).abs(), zero).amax(1) / scale).max())
 
 
@@ -710,16 +761,18 @@ def arima_design(k: int) -> str:
     return f"arima_chunk_kernel<{kc}>"
 
 
-def check_arima_chunk(B: int, k: int, T: int) -> dict:
+def check_arima_chunk(B: int, k: int, T: int, detector: bool = False
+                      ) -> dict:
     """The CUDA ARIMA chunk against its plain version: every output within
     1e-12 of each stream's scale, do_rls and count equal, the same bits on
     a second call, no spill at the bank's orders; timed beside the plain
-    version and the per-tick path it replaces."""
+    version and the per-tick path it replaces. ``detector``: at the
+    detector bank's model (see :func:`chunk_operands`)."""
     import torch
     from repro_torch.kernels import rls_update as kmod
     from repro_torch.kernels.ref import arima_chunk_ref
     state, params, vals = chunk_operands(B, k, T, seed=B * 1000 + k * 10 + T,
-                                         device="cuda")
+                                         device="cuda", detector=detector)
 
     def run(fn, st=None):
         st = st or [x.clone() for x in state]
@@ -764,7 +817,9 @@ def check_arima_chunk(B: int, k: int, T: int) -> dict:
     plain = slow_ms(lambda: run(arima_chunk_ref, st))
     with per_tick_kernels():
         old = slow_ms(lambda: run(arima_chunk_ref, st))
-    return {"streams": B, "k": k, "ticks": T, "max_rel_err": worst,
+    return {"streams": B, "k": k, "ticks": T,
+            "model": "detector" if detector else "forecast bank",
+            "max_rel_err": worst,
             "max_abs_err": max_err, "bytes": n_bytes,
             "ms": device_ms(call), "dispatch_ms": host_ms(call),
             "plain_ms": plain["device"], "plain_dispatch_ms": plain["host"],
@@ -1556,24 +1611,31 @@ def decision_margin(eng_a, eng_b, j: int) -> str:
     return f"events agree on their common prefix ({len(ea)} vs {len(eb)})"
 
 
-def demeter_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
-    """Phase 7: the same 3-scenario, 2 h grid with scalar fits on each
-    device; every scenario must agree at rtol 1e-9."""
+def demeter_grid():
+    """Phase 7's grid and config: 3 Demeter scenarios (one a forecaster
+    family), 2 h, failures every 45 minutes, the scalar GP fits and
+    profiling every 10 minutes."""
     from repro_torch.core import EngineConfig
     from repro_torch.core.demeter import DemeterHyperParams
-    from repro_torch.dsp import (PeriodicFailures, ScenarioSpec, SweepEngine,
-                                 make_trace)
+    from repro_torch.dsp import PeriodicFailures, ScenarioSpec, make_trace
     specs = [ScenarioSpec(trace=make_trace(k, duration_s=2 * 3600.0),
                           controller="demeter", seed=s,
                           failures=PeriodicFailures(2700.0), forecaster=f)
              for s, (k, f) in enumerate((("diurnal", "arima"),
                                          ("flash", "holt"),
                                          ("regime", "seasonal")))]
-    hp = DemeterHyperParams(profile_interval_s=600)
+    return specs, EngineConfig(fit_backend="scalar", hp=DemeterHyperParams(
+        profile_interval_s=600))
+
+
+def demeter_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """Phase 7: the same 3-scenario, 2 h grid with scalar fits on each
+    device; every scenario must agree at rtol 1e-9."""
+    from repro_torch.dsp import SweepEngine
+    specs, config = demeter_grid()
     engines, results = {}, {}
     for dev in devices:
-        eng = SweepEngine(specs, config=EngineConfig(
-            device=dev, fit_backend="scalar", hp=hp))
+        eng = SweepEngine(specs, config=config.replace(device=dev))
         results[dev] = eng.run()
         engines[dev] = eng
         check_result(results[dev], len(specs), eng.n_steps)
@@ -1599,6 +1661,289 @@ def demeter_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
            "largest_rel_diff": largest_rel_diff(a, b),
            "wall_s": {d: results[d].wall_s for d in devices}}
     print("demeter card vs cpu " + json.dumps(out), flush=True)
+    out["results"] = results
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the detector bank and the paper's per-cell protocol
+# ---------------------------------------------------------------------------
+
+def detector_streams(n: int, T: int, seed: int = 0):
+    """(values (T, n), active (T, n)): throughput-like streams in events/s
+    (1e3-8e4, a periodic swing, 1% noise); a quarter of the streams (every
+    fourth) drop to zero three times, half (the even ones) have 3% NaN
+    gaps, and an eighth (j = 2 mod 8) are inactive 20 samples in 40."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)[:, None]
+    base = rng.uniform(1e3, 8e4, n)[None, :]
+    period = rng.uniform(30.0, 200.0, n)[None, :]
+    v = base * (1 + 0.1 * np.sin(2 * np.pi * t / period)) \
+        * (1 + 0.01 * rng.normal(0, 1, (T, n)))
+    for j in range(0, n, 4):
+        for start in rng.integers(60, T - 60, 3):
+            v[start:start + rng.integers(5, 40), j] = 0.0
+    gaps = rng.random((T, n)) < 0.03
+    gaps[:, 1::2] = False
+    v[gaps] = np.nan
+    act = np.ones((T, n), bool)
+    act[(t[:, 0] // 20) % 2 == 1, 2::8] = False
+    return v, act
+
+
+def detector_state(bank, device=None) -> list:
+    """Copies of a DetectorBank's state, ring and ring counts."""
+    return [x.detach().to(device or x.device, copy=True)
+            for x in (*bank._state, bank._ring, bank._rn)]
+
+
+def detector_bank_path(n: int = DETECTOR_STREAMS, T: int = DETECTOR_SAMPLES,
+                       device: str = "cuda") -> dict:
+    """Phase 23: a DetectorBank of ``n`` streams on ``device`` over ``T``
+    samples against the port's CPU bank (equal flags on every sample) and
+    the scalar MetricDetector (the first DETECTOR_SCALAR streams); the state
+    one sample at a time from the CPU bank's: equal counts, and every float
+    array of every stream that takes the sample (not flagged) within 1e-12
+    of the stream's scale (its largest magnitude before or after the
+    sample). A flagged stream coasts on its own prediction: its residual
+    is zero up to rounding, and its lags may have run away by decades, so
+    its residual ring and P hold rounding noise; their differences are
+    printed, not held. K1 (``arima_chunk``) once per observe."""
+    import numpy as np
+    import torch
+    from repro_torch.core import DetectorBank, MetricDetector
+    from repro_torch.kernels import rls_update as k1
+    vals, act = detector_streams(n, T)
+    card = DetectorBank(n, device=device)
+    cpu = DetectorBank(n, device="cpu")
+    scalars = [MetricDetector(f"m{j}") for j in range(DETECTOR_SCALAR)]
+    checks = set(range(DETECTOR_CHECK_EVERY // 2, T, DETECTOR_CHECK_EVERY))
+    before, after, flags_at = {}, {}, {}
+    n_flags = 0
+    k1.arima_chunk.launches = k1.rls_rank1_update.launches = 0
+    for i in range(T):
+        if i in checks:
+            before[i] = detector_state(cpu)
+        got = card.observe(vals[i], act[i])
+        with CpuThreads():
+            want = cpu.observe(vals[i], act[i])
+        if i in checks:
+            after[i], flags_at[i] = detector_state(cpu), want
+        if not np.array_equal(got, want):
+            fail(f"detector bank: {int((got != want).sum())} flags differ "
+                 f"from the CPU bank at sample {i}")
+        for j, det in enumerate(scalars):
+            if bool(got[j]) != (det.observe(vals[i, j]) if act[i, j]
+                                else False):
+                fail(f"detector bank: stream {j} differs from "
+                     f"MetricDetector at sample {i}")
+        n_flags += int(got.sum())
+    launches = k1.arima_chunk.launches
+    per_step = k1.rls_rank1_update.launches
+    if device == "cuda" and not (launches == card.n_samples == T
+                                 and per_step == 0):
+        fail(f"detector bank: {launches} arima_chunk launches for "
+             f"{card.n_samples} observes (rls_update {per_step})")
+    # the state, one sample at a time from the CPU bank's
+    probe = DetectorBank(n, device=device)
+    worst, coasting = {}, {}
+    for i in sorted(before):
+        *state, ring, rn = (x.to(probe.device) for x in before[i])
+        probe.load_state(state, ring, rn)
+        if not np.array_equal(probe.observe(vals[i], act[i]), flags_at[i]):
+            fail(f"detector bank: flags from a shared state differ at {i}")
+        flagged = torch.as_tensor(np.pad(flags_at[i], (0, probe.b - n)))
+        for name, b, g, w in zip(probe._state._fields + ("ring", "rn"),
+                                 before[i], detector_state(probe, "cpu"),
+                                 after[i]):
+            if g.dtype == torch.int64:
+                if not torch.equal(g, w):
+                    fail(f"detector bank: {name} differs at sample {i}")
+                continue
+            for into, rows in ((worst, ~flagged), (coasting, flagged)):
+                if rows.any():
+                    into[name] = max(into.get(name, 0.0), rel_by_stream(
+                        g[rows], w[rows], also=b[rows]))
+    print(f"detector bank state, one sample from a shared state: largest "
+          f"difference by field relative to each stream's scale: streams "
+          f"that take the sample {worst}; flagged streams, coasting "
+          f"{coasting}", flush=True)
+    if not max(worst.values()) <= 1e-12:
+        fail(f"detector bank: the state differs by more than 1e-12: {worst}")
+    # device time per observe (the probe, off the count), and what one
+    # profiling clone's bank of two streams costs to build
+    busy = device_busy(lambda: [probe.observe(vals[i], act[i])
+                                for i in range(20)]) if device == "cuda" \
+        else {}
+    t0 = time.perf_counter()
+    for _ in range(50):
+        DetectorBank(2, device=device)
+    build_ms = (time.perf_counter() - t0) / 50 * 1e3
+    out = {"streams": n, "samples": T, "flags": n_flags,
+           "arima_chunk_launches": launches,
+           "host_ms_per_observe": card.wall_s / card.n_samples * 1e3,
+           "cpu_host_ms_per_observe": cpu.wall_s / cpu.n_samples * 1e3,
+           "device_busy_ms_per_observe": busy.get("device_busy_ms", 0.0)
+           / 20, "idle_share": busy.get("idle_share"),
+           "top_kernels_ms_per_20": busy.get("top_kernels_ms"),
+           "state_checks": len(before),
+           "max_state_rel": max(worst.values()),
+           "max_state_rel_coasting": coasting,
+           "bank_of_2_build_ms": build_ms}
+    print("detector bank " + json.dumps(out), flush=True)
+    return out
+
+
+class Recorder:
+    """Records the DemeterControllers that ``run_experiment`` builds (their
+    forecast banks count the ARIMA chunks)."""
+
+    def __enter__(self):
+        from repro_torch.dsp import runner
+        self.made = made = []
+        self.cls = base = runner.DemeterController
+
+        class Recording(base):
+            def __post_init__(self):
+                super().__post_init__()
+                made.append(self)
+        runner.DemeterController = Recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dsp import runner
+        runner.DemeterController = self.cls
+
+
+def table3_row(res, wall_s: float) -> dict:
+    """A Table-3 row of one run: latencies under 2 s, reconfigurations,
+    recoveries (NR: a reconfiguration overlapped; 6m+: past the cap), and
+    CPU core-hours and memory GB-hours with and without profiling."""
+    rec = res.recovery_times()
+    done = [r for r in rec if r is not None and math.isfinite(r)]
+    return {"trace": res.trace, "method": res.method,
+            "latency_below_2s": res.frac_latency_below(2.0),
+            "reconfigurations": res.n_reconfigurations,
+            "failures": len(rec), "recovered": len(done),
+            "NR": sum(r is None for r in rec),
+            "6m+": sum(r is not None and not math.isfinite(r) for r in rec),
+            "mean_recovery_s": statistics.mean(done) if done else None,
+            "cpu_core_h": res.cumulative_cpu_s() / 3600.0,
+            "cpu_core_h_no_profiling": res.cumulative_cpu_s(False) / 3600.0,
+            "mem_gb_h": res.cumulative_mem_mb_s() / 3600.0 / 1024.0,
+            "mem_gb_h_no_profiling":
+                res.cumulative_mem_mb_s(False) / 3600.0 / 1024.0,
+            "wall_s": wall_s}
+
+
+def paper_protocol(device: str = "cuda", duration_s: float = 18 * 3600.0
+                   ) -> dict:
+    """Phase 24: ``run_experiment`` for every method on ysb and tsw at the
+    paper's 18 h (dt = 5 s, a failure every 45 minutes, seed 0) under
+    ``EngineConfig(device=device)``."""
+    import numpy as np
+    from repro_torch.core import EngineConfig
+    from repro_torch.dsp import (FAILURE_INTERVAL_S, PeriodicFailures,
+                                 run_experiment, tsw_like, ysb_like)
+    from repro_torch.kernels import rls_update as k1
+    schedule = PeriodicFailures(FAILURE_INTERVAL_S)
+    n_fail = len(schedule.times(duration_s))
+    rows, launches = [], {}
+    for make in (ysb_like, tsw_like):
+        trace = make(duration_s=duration_s, dt_s=5.0)
+        for method in PAPER_METHODS:
+            k1.arima_chunk.launches = k1.rls_rank1_update.launches = 0
+            t0 = time.perf_counter()
+            with Recorder() as made:
+                res = run_experiment(trace, method, seed=0,
+                                     failures_schedule=schedule,
+                                     config=EngineConfig(device=device))
+            wall = time.perf_counter() - t0
+            name = f"{trace.name}/{method}"
+            for f in ("latencies", "rates", "usage_cpu", "usage_mem_mb",
+                      "workers"):
+                a = getattr(res, f)
+                if a.shape != (int(duration_s / 5.0),) \
+                        or not np.isfinite(a).all():
+                    fail(f"run_experiment {name}: {f} is not finite")
+            if len(res.failures) != n_fail:
+                fail(f"run_experiment {name}: {len(res.failures)} failure "
+                     f"records for {n_fail} failures")
+            if (res.profile_cpu_s > 0) != (method == "demeter"):
+                fail(f"run_experiment {name}: profiling cost "
+                     f"{res.profile_cpu_s}")
+            if method == "demeter":
+                chunks = made.made[0].tsf.bank.arima_chunks
+                n = k1.arima_chunk.launches
+                if device == "cuda" and not (
+                        n == chunks > 0 and k1.rls_rank1_update.launches == 0):
+                    fail(f"run_experiment {name}: {n} arima_chunk launches "
+                         f"for {chunks} ARIMA chunks")
+                launches[trace.name] = n
+            row = table3_row(res, wall)
+            rows.append(row)
+            print("table3 " + json.dumps(row), flush=True)
+    return {"rows": rows, "arima_chunk_launches": launches}
+
+
+def paper_protocol_card_vs_cpu(grid_results, devices=("cuda", "cpu")) -> dict:
+    """Phase 25: ``run_experiment`` of every method on ysb (2 h, seed 3,
+    the scalar GP fits) on each device: arrays at rtol 1e-9, equal
+    reconfigurations and failure records; then phase 7's grid on the first
+    device with the bank detector against phase 7's run (the scalar one),
+    and on the scalar engine against the batched engine, at rtol 1e-9."""
+    import numpy as np
+    from repro_torch.core import EngineConfig
+    from repro_torch.dsp import SweepEngine, run_experiment, ysb_like
+    duration, seed = PROTOCOL_CARD_VS_CPU
+    trace = ysb_like(duration_s=duration)
+    out = {}
+    for method in PAPER_METHODS:
+        a, b = (run_experiment(trace, method, seed=seed,
+                               config=EngineConfig(device=d,
+                                                   fit_backend="scalar"))
+                for d in devices)
+        for f in ("times", "rates", "latencies", "usage_cpu", "usage_mem_mb",
+                  "workers"):
+            if not np.allclose(getattr(a, f), getattr(b, f), rtol=1e-9,
+                               atol=0.0):
+                fail(f"run_experiment {method}: {f} differs between "
+                     f"{devices}")
+        recs = [[(r.t_inject, r.workload, r.recovery_s, r.capped)
+                 for r in x.failures] for x in (a, b)]
+        if a.n_reconfigurations != b.n_reconfigurations or recs[0] != recs[1]:
+            fail(f"run_experiment {method}: reconfigurations "
+                 f"{a.n_reconfigurations} vs {b.n_reconfigurations}, "
+                 f"failures {recs[0]} vs {recs[1]}")
+        out[method] = {"reconfigurations": a.n_reconfigurations,
+                       "failures": len(a.failures),
+                       "profile_cpu_s": [a.profile_cpu_s, b.profile_cpu_s]}
+    print("run_experiment card vs cpu " + json.dumps(out), flush=True)
+    specs, config = demeter_grid()
+    config = config.replace(device=devices[0])
+    grids = {"scalar detector (phase 7)": grid_results[devices[0]]}
+    for label, kw in (("bank detector", dict(detector_backend="bank")),
+                      ("scalar engine", dict(sim_backend="scalar")),
+                      ("batched engine", dict(sim_backend="batched"))):
+        t0 = time.perf_counter()
+        eng = SweepEngine(specs, config=config.replace(**kw))
+        grids[label] = eng.run()
+        check_result(grids[label], len(specs), eng.n_steps)
+        print(f"demeter 2 h, {label}: wall_s {time.perf_counter() - t0}",
+              flush=True)
+    for x, y in (("bank detector", "scalar detector (phase 7)"),
+                 ("scalar engine", "batched engine")):
+        for sa, sb in zip(grids[x].scenarios, grids[y].scenarios):
+            if not sa.allclose(sb, rtol=1e-9) \
+                    or sa.n_reconfigurations != sb.n_reconfigurations:
+                fail(f"Demeter grid, {x} vs {y}: {sa.name}: "
+                     f"{first_difference(sa, sb)}")
+        if grids[x].n_model_fits != grids[y].n_model_fits:
+            fail(f"Demeter grid, {x} vs {y}: n_model_fits differ")
+        print(f"demeter 2 h grid: {x} equals {y} at rtol 1e-9 (largest "
+              f"relative difference {largest_rel_diff(grids[x], grids[y])})",
+              flush=True)
     return out
 
 
@@ -2338,6 +2683,12 @@ def main() -> int:
             for T in CHUNK_TICKS:
                 chunk_rows[(B, k, T)] = r = check_arima_chunk(B, k, T)
                 print("kernel arima_chunk " + json.dumps(r), flush=True)
+    # K1 as the detector bank runs it: a chunk of one tick a sample at
+    # p = 4, d = 1, in a profiling clone (2 streams) and the fleet's slab
+    det_rows = {}
+    for B, T in DETECTOR_CHUNKS:
+        det_rows[B] = r = check_arima_chunk(B, DETECTOR_K, T, detector=True)
+        print("kernel arima_chunk detector " + json.dumps(r), flush=True)
     # K3 at the serving path's shapes (qwen2-7b: Hkv = 4, G = 7, D = 128;
     # 16 slots of 4096), then over groups and head dims
     serve_cfg = get_config(SERVE_ARCH)
@@ -2478,7 +2829,7 @@ def main() -> int:
     print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 7. the Demeter path, card against CPU -------------------------------
-    demeter_card_vs_cpu()
+    grid = demeter_card_vs_cpu()
     print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 8. the serving main path -------------------------------------------
@@ -2570,7 +2921,21 @@ def main() -> int:
 
     # -- 22. deepseek-v2-lite, card against CPU -----------------------------
     serving_card_vs_cpu(arch=MLA_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"phase 22 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 23. the detector bank: the fleet's slab of 1 024 streams -----------
+    detector = detector_bank_path()
+    print(f"phase 23 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 24. the paper's per-cell protocol (run_experiment, 18 h) -----------
+    protocol = paper_protocol()
+    print(f"phase 24 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 25. the protocol and the grid's backends, card against CPU ---------
+    paper_protocol_card_vs_cpu(grid["results"])
+    print(f"phase 25 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- summary lines: each kernel's launches on its main path and its
     # times at that path's shapes
@@ -2604,10 +2969,21 @@ def main() -> int:
         "source": "src/repro_torch/csrc/rls_update.cu",
         "replaces": "src/repro/kernels/rls_update.py:41",
         "launches": main_path["launches"]["arima_chunk"],
-        "max_abs_err": max(r["max_abs_err"] for r in chunk_rows.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           (*chunk_rows.values(), *det_rows.values())),
         "ms": chunk["ms"], "plain_ms": chunk["plain_ms"],
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
         "library_ms": None,
+        # K1 on the other paths: the detector bank (phase 23, one launch a
+        # sample, timed at its shape) and run_experiment's Demeter cells
+        "paths": {"detector bank": {
+            "launches": detector["arima_chunk_launches"],
+            "streams": DETECTOR_STREAMS, **{
+                key: det_rows[DETECTOR_STREAMS][key]
+                for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "max_abs_err")}},
+            "run_experiment demeter": {
+                "launches": protocol["arima_chunk_launches"]}},
     }, {
         "name": "fused_tick", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_tick.cu",
@@ -2688,6 +3064,10 @@ def main() -> int:
                      f"path that calls it nowhere")
         elif not k["launches"] > 0:
             fail(f"{k['name']} was not launched on the main path")
+        for label, path in k.get("paths", {}).items():
+            n = path["launches"]
+            if not (min(n.values()) if isinstance(n, dict) else n) > 0:
+                fail(f"{k['name']} was not launched on the {label} path")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

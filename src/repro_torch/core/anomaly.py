@@ -7,11 +7,16 @@ state, and *recovery time = contiguous time spent anomalous* — from failure
 onset until the job has caught back up to the head of the queue (not merely
 until processing resumes).
 
-The detector backend is picked through
-:data:`repro_torch.core.registry.DETECTOR_BACKENDS`. This port registers
-``"scalar"``: one :class:`MetricDetector` per metric stream (float64 NumPy,
-ring-buffered error windows), a copy of the reference's. The reference's
-batched ``"bank"`` detector is not ported yet.
+Two detector backends share these semantics, picked through
+:data:`repro_torch.core.registry.DETECTOR_BACKENDS`:
+
+* ``"scalar"`` — one :class:`MetricDetector` per metric stream (float64
+  NumPy on the host, ring-buffered error windows), a copy of the
+  reference's;
+* ``"bank"`` — every stream of the set in one
+  :class:`~repro_torch.core.forecast_bank.DetectorBank` on a device (float64
+  torch: batched one-step predictors, streaming-MAD thresholds over fixed
+  rings, and the ARIMA step as one ``arima_chunk`` call a sample).
 """
 from __future__ import annotations
 
@@ -80,19 +85,36 @@ class MetricDetector:
 
 
 #: Registered detector backends share one factory signature:
-#: ``backend(metrics) -> impl`` where ``impl.fired(values) -> int`` counts
-#: the metric streams that flagged this sample as anomalous.
+#: ``backend(metrics, device) -> impl`` where ``impl.fired(values) -> int``
+#: counts the metric streams that flagged this sample as anomalous.
 
 @DETECTOR_BACKENDS.register("scalar")
 class ScalarDetectorSet:
-    """One float64 :class:`MetricDetector` per stream (reference oracle)."""
+    """One float64 :class:`MetricDetector` per stream (reference oracle, on
+    the host whatever ``device`` says)."""
 
-    def __init__(self, metrics):
+    def __init__(self, metrics, device: str = "cuda"):
+        del device
         self.detectors = {m: MetricDetector(m) for m in metrics}
 
     def fired(self, values: Dict[str, float]) -> int:
         return sum(1 for m, v in values.items()
                    if m in self.detectors and self.detectors[m].observe(v))
+
+
+@DETECTOR_BACKENDS.register("bank")
+class BankedDetectorSet:
+    """Every stream through one :class:`DetectorBank` on ``device``."""
+
+    def __init__(self, metrics, device: str = "cuda"):
+        from .forecast_bank import DetectorBank   # lazy: avoids a cycle
+        self.metrics = tuple(metrics)
+        self.bank = DetectorBank(len(self.metrics), device=device)
+
+    def fired(self, values: Dict[str, float]) -> int:
+        vals = np.array([values.get(m, np.nan) for m in self.metrics],
+                        np.float64)
+        return int(self.bank.observe(vals).sum())
 
 
 @dataclass
@@ -102,13 +124,17 @@ class RecoveryTracker:
     Feed (timestamp, {metric: value}); when an anomalous episode closes,
     :attr:`last_recovery_s` holds its duration. The paper's two signals are
     input throughput and average consumer lag. ``detector_backend`` names
-    an entry of :data:`~repro_torch.core.registry.DETECTOR_BACKENDS`.
+    an entry of :data:`~repro_torch.core.registry.DETECTOR_BACKENDS`;
+    ``device`` is where a ``"bank"`` detector keeps its state (the card by
+    default; it raises where there is none, so pass ``device="cpu"``), and
+    the ``"scalar"`` one ignores it.
     """
 
     metrics: tuple = ("throughput", "consumer_lag")
     quorum: int = 1            # how many metrics must fire to call it anomalous
     close_after: int = 3       # healthy samples required to close an episode
     detector_backend: str = "scalar"
+    device: str = "cuda"
     detectors: Dict[str, MetricDetector] = field(default_factory=dict)
     _open_since: Optional[float] = None
     _healthy_streak: int = 0
@@ -117,7 +143,8 @@ class RecoveryTracker:
     episodes: List[tuple] = field(default_factory=list)
 
     def __post_init__(self) -> None:
-        self._impl = DETECTOR_BACKENDS.get(self.detector_backend)(self.metrics)
+        self._impl = DETECTOR_BACKENDS.get(self.detector_backend)(
+            self.metrics, self.device)
         # Back-compat: the scalar per-metric detectors stay reachable.
         self.detectors = getattr(self._impl, "detectors", {})
 

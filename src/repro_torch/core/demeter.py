@@ -26,7 +26,7 @@ import numpy as np
 
 from .acquisition import ehvi_2d, hypervolume_2d, select_profiling_batch
 from .config_space import ConfigSpace
-from .executor import EngineConfig, resolve_device
+from .executor import EngineConfig, coerce_config, resolve_device
 from .forecast import binned_forecast
 from .forecast_bank import make_forecaster
 from .gp import GP
@@ -261,7 +261,9 @@ class DemeterController:
     Backend selection (GP fit path, TSF path) and the device come from one
     :class:`~repro_torch.core.executor.EngineConfig` passed as ``config=``;
     ``None`` is ``EngineConfig()``, whose device is the card (it raises
-    where there is no card: pass ``EngineConfig(device="cpu")``).
+    where there is no card: pass ``EngineConfig(device="cpu")``). The old
+    string kwargs ``fit_backend=`` and ``forecast_backend=`` still work as
+    deprecation shims and fold into the config.
     """
 
     space: ConfigSpace
@@ -274,8 +276,12 @@ class DemeterController:
     #: instead so all scenarios' streams advance in one batched update.
     tsf: Optional[object] = None
     lc: LatencyConstraint = field(default_factory=LatencyConstraint)
+    #: .. deprecated:: use ``config=EngineConfig(fit_backend=...)``.
+    fit_backend: Optional[str] = None
     #: TSF forecaster kind (see :data:`repro_torch.core.registry.FORECASTERS`).
     forecaster: str = "arima"
+    #: .. deprecated:: use ``config=EngineConfig(forecast_backend=...)``.
+    forecast_backend: Optional[str] = None
     #: the control-plane configuration (backends + hp + device)
     config: Optional[EngineConfig] = None
     store: SegmentStore = field(init=False)
@@ -292,10 +298,12 @@ class DemeterController:
     alloc: Optional[np.ndarray] = None
 
     def __post_init__(self) -> None:
-        config = self.config if self.config is not None else EngineConfig()
-        if self.hp is not None:
-            config = config.replace(hp=self.hp)
-        self.config = config
+        self.config = config = coerce_config(
+            self.config, fit_backend=self.fit_backend,
+            forecast_backend=self.forecast_backend, hp=self.hp)
+        # The resolved backend names stay readable as plain attributes.
+        self.fit_backend = config.fit_backend
+        self.forecast_backend = config.forecast_backend
         resolve_device(config.device)
         self.hp = config.resolved_hp()
         if self.tsf is None:

@@ -1,24 +1,30 @@
-"""Batched online forecasting (paper §2.2) in float64 torch.
+"""Batched online forecasting and anomaly detection (paper §2.2-2.3) in
+float64 torch.
 
-:class:`ForecastBank` packs every (scenario x stream) online forecaster of
-a sweep into stacked tensors on one device and advances all of them
-together. Streams are grouped by family (``arima`` / ``holt`` /
-``seasonal``, mirroring the scalar zoo in :mod:`repro_torch.core.forecast`).
-Updates are *staged* per stream into write-behind queues; when the next
-forecast is read, :meth:`ForecastBank.flush` replays every queued tick of
-every stream as one chunk — a Python loop over the chunk's T ticks, each
-tick one batched step over all streams, with the family's state tensors
-updated in place when the chunk ends (the reference's ``lax.scan`` with
-donated buffers). A read that finds staged ticks replays them and rolls
-out the horizon in one pass.
+* :class:`ForecastBank` packs every (scenario x stream) online forecaster
+  of a sweep into stacked tensors on one device and advances all of them
+  together. Streams are grouped by family (``arima`` / ``holt`` /
+  ``seasonal``, mirroring the scalar zoo in
+  :mod:`repro_torch.core.forecast`). Updates are *staged* per stream into
+  write-behind queues; when the next forecast is read,
+  :meth:`ForecastBank.flush` replays every queued tick of every stream as
+  one chunk, with the family's state tensors updated in place (the
+  reference's ``lax.scan`` with donated buffers). A read that finds staged
+  ticks replays them and rolls out the horizon in one pass.
+* :class:`DetectorBank` is the §2.3 one-step-error anomaly detectors,
+  batched: one call per sample advances every stream's ARIMA predictor,
+  compares the absolute one-step error against a median + k·MAD threshold
+  over a fixed ring of past healthy errors, and coasts anomalous streams
+  on their own prediction.
 
 The ARIMA family's step is a batched rank-1 RLS update on weights
-``w[B, k]`` and covariances ``P[B, k, k]``: it calls
-:func:`repro_torch.kernels.ops.rls_rank1_update` on every tick, which runs
-the CUDA kernel ``csrc/rls_update.cu`` on the card and its plain version on
-the CPU. The step keeps the reference's guards: re-symmetrized covariance,
-the anti-windup trace cap, padded dimensions pinned at ``ridge * I``, and a
-divergence reset.
+``w[B, k]`` and covariances ``P[B, k, k]`` with the reference's guards:
+re-symmetrized covariance, the anti-windup trace cap, padded dimensions
+pinned at ``ridge * I``, and a divergence reset. Both banks run it through
+:func:`repro_torch.kernels.ops.arima_chunk`: the forecast bank once per
+flush (every queued tick of the chunk), the detector bank once per sample
+(a chunk of one tick). On the card that is one launch of the CUDA kernel in
+``csrc/rls_update.cu``; on the CPU its plain version.
 
 Numerics: bank state is float64, so every family agrees with its scalar
 NumPy oracle to reduction-order rounding. Heterogeneous AR and differencing
@@ -36,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from .anomaly import DETECTOR_ERR_WINDOW
 from .executor import resolve_device
 from .forecast import (ERR_WINDOW, FORECASTER_DEFAULTS, FORECASTER_KINDS,
                        P_TRACE_CAP, ROLLOUT_DIFF_CAP, make_scalar_forecaster)
@@ -737,3 +744,151 @@ def make_forecaster(kind: str = "arima", *, backend: str = "bank",
     ``device``."""
     factory = FORECAST_BACKENDS.get(backend)
     return factory(kind, horizon=horizon, device=device, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# DetectorBank: batched §2.3 anomaly detectors
+# ---------------------------------------------------------------------------
+
+def _mad_threshold(ring: torch.Tensor, rn: torch.Tensor, k_sigma: float,
+                   warm: int) -> torch.Tensor:
+    """Median + k·MAD over each row's healthy-error ring (+inf before
+    ``warm`` errors): two sorts with +inf in the unused slots."""
+    E = ring.shape[1]
+    cnt = torch.clamp(rn, max=E)
+    validm = torch.arange(E, device=ring.device)[None, :] < cnt[:, None]
+    c = torch.clamp(cnt, min=1)
+    inf = torch.tensor(float("inf"), dtype=ring.dtype, device=ring.device)
+
+    def masked_median(x: torch.Tensor) -> torch.Tensor:
+        s = torch.sort(torch.where(validm, x, inf), dim=1).values
+        lo = torch.gather(s, 1, ((c - 1) // 2)[:, None])[:, 0]
+        hi = torch.gather(s, 1, (c // 2)[:, None])[:, 0]
+        return 0.5 * (lo + hi)
+
+    med = masked_median(ring)
+    mad = masked_median((ring - med[:, None]).abs()) * 1.4826
+    thr = med + k_sigma * torch.clamp(mad, min=1e-9)
+    return torch.where(cnt >= warm, thr, inf)
+
+
+def _detector_observe(state: _ArimaState, params: _ArimaParams,
+                      c: _ArimaConst, ring: torch.Tensor, rn: torch.Tensor,
+                      vals: torch.Tensor, k_sigma: float, warm: int
+                      ) -> Tuple[_ArimaState, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """One sample for every stream (NaN where a stream has none): predict,
+    threshold, push the healthy error, and take the ARIMA step on the
+    sample, or on the prediction where it is anomalous. Returns the state
+    (``w``/``P``/``lags``/``tails``/``count``/``last`` updated in place),
+    the ring, its counts and the flags."""
+    act = torch.isfinite(vals)
+    v = torch.where(act, vals, 0.0)
+    pred = _arima_roll(state, params, c, 1)[:, 0]
+    # A non-finite prediction must neither flag nor enter the healthy-error
+    # ring (it would disable the MAD threshold forever): the scalar
+    # detector's sick-model guard.
+    can = (state.count >= warm) & torch.isfinite(pred)
+    err_abs = (v - pred).abs()
+    thr = _mad_threshold(ring, rn, k_sigma, warm)
+    anomalous = act & can & (err_abs > thr)
+    ring, rn = _ring_push(ring, rn, err_abs, act & can & ~anomalous)
+    # Positive-executions-only training: coast on the prediction during an
+    # anomaly so the outage regime never looks 'normal'.
+    used = torch.where(anomalous, pred, v)
+    step = torch.where(act, used, float("nan"))
+    state = _arima_chunk(state, params, c, step[None])
+    return state, ring, rn, anomalous
+
+
+class DetectorBank:
+    """B one-step-error anomaly detectors advanced by one call per sample.
+
+    Batched mirror of :class:`repro_torch.core.anomaly.MetricDetector`:
+    each stream runs an online-ARIMA identity predictor (AR(``p``) on the
+    ``d``-differenced series); the absolute one-step error is compared
+    against ``median + k·MAD`` of a fixed ring of past *healthy* errors.
+    State is float64 on ``device`` (the card by default; it raises where
+    there is none, so pass ``device="cpu"``), padded to a power of two of
+    rows as the reference pads. An :meth:`observe` is one
+    :func:`~repro_torch.kernels.ops.arima_chunk` call of one tick and one
+    copy of the flags back to the host.
+    """
+
+    def __init__(self, n_streams: int, *, k_sigma: float = 5.0,
+                 min_warmup: int = 12, p: int = 4, d: int = 1,
+                 err_window: int = DETECTOR_ERR_WINDOW,
+                 device: str = "cuda"):
+        if n_streams < 1:
+            raise ValueError("DetectorBank needs at least one stream")
+        self.n = n_streams
+        self.b = bucket_pow2(n_streams, minimum=1)
+        self.device = resolve_device(device)
+        model = _ArimaBank([dict(p=p, d=d)] * self.b, self.device)
+        self._state, self._params = model.state, model.params
+        self._const = model.const
+        self._ring = torch.zeros((self.b, err_window), dtype=_F64,
+                                 device=self.device)
+        self._rn = torch.zeros(self.b, dtype=torch.int64, device=self.device)
+        self._k_sigma = float(k_sigma)
+        self._warm = int(min_warmup)
+        #: host wall of the observe calls, and their number
+        self.wall_s = 0.0
+        self.n_samples = 0
+        # Copies for reset_rows: arima_chunk updates the live state in place.
+        self._state0 = model._state0
+        self._ring0 = self._ring.clone()
+        self._rn0 = self._rn.clone()
+
+    def reset_rows(self, rows: Sequence[int]) -> None:
+        """Return detectors ``rows`` to their just-constructed state (the
+        fleet-slot-reuse mirror of :meth:`ForecastBank.reset_rows`)."""
+        if len(rows) == 0:
+            return
+        idx = torch.as_tensor(sorted(int(r) for r in rows),
+                              device=self.device)
+        for cur, init in zip(self._state, self._state0):
+            cur[idx] = init[idx]
+        self._ring[idx] = self._ring0[idx]
+        self._rn[idx] = self._rn0[idx]
+
+    def load_state(self, state: Sequence[torch.Tensor], ring: torch.Tensor,
+                   rn: torch.Tensor) -> None:
+        """Overwrite the state, the ring and its counts in place (shapes and
+        dtypes must match; see
+        :func:`repro_torch.interop.detector_bank_from_arrays`)."""
+        names = self._state._fields + ("ring", "rn")
+        for name, buf, src in zip(names, (*self._state, self._ring, self._rn),
+                                  (*state, ring, rn)):
+            if src.shape != buf.shape or src.dtype != buf.dtype:
+                raise ValueError(
+                    f"detector {name}: expected {tuple(buf.shape)} "
+                    f"{buf.dtype}, got {tuple(src.shape)} {src.dtype}")
+            buf.copy_(src)
+
+    def observe(self, values: np.ndarray,
+                active: Optional[np.ndarray] = None) -> np.ndarray:
+        """Feed one sample per stream; returns the per-stream anomaly flags.
+
+        ``active=False`` (or a non-finite value) skips that stream entirely,
+        like not calling the scalar detector."""
+        values = np.asarray(values, np.float64)
+        if values.shape != (self.n,):
+            raise ValueError(f"expected {self.n} values, got {values.shape}")
+        # An inactive stream's sample becomes NaN, the skip the step reads:
+        # the sample and the mask cross to the device as one array.
+        vals = np.full(self.b, np.nan)
+        vals[:self.n] = values if active is None else \
+            np.where(np.asarray(active, bool), values, np.nan)
+        t0 = time.perf_counter()
+        state, ring, rn, flags = _detector_observe(
+            self._state, self._params, self._const, self._ring, self._rn,
+            torch.as_tensor(vals, device=self.device), self._k_sigma,
+            self._warm)
+        self._state.err.copy_(state.err)
+        self._state.err_n.copy_(state.err_n)
+        self._ring, self._rn = ring, rn
+        out = flags.cpu().numpy()[:self.n]
+        self.wall_s += time.perf_counter() - t0
+        self.n_samples += 1
+        return out

@@ -108,11 +108,11 @@ FIT_BACKENDS: Registry = Registry("fit backend")
 #: ``factory(kind, horizon=..., device=..., **kwargs) -> forecaster``.
 FORECAST_BACKENDS: Registry = Registry("forecast backend")
 
-#: Anomaly-detector backends of RecoveryTracker ("scalar"; the batched
-#: detector bank is not ported yet).
+#: Anomaly-detector backends of RecoveryTracker ("scalar" / "bank"). Entries
+#: build one detector set: ``backend(metrics, device) -> impl``.
 DETECTOR_BACKENDS: Registry = Registry("detector backend")
 
-#: Sweep simulation engines ("batched" / "fused"). Entries subclass
+#: Sweep simulation engines ("batched" / "fused" / "scalar"). Entries subclass
 #: :class:`repro_torch.dsp.executor.SweepExecutorBase`; an engine with
 #: ``supports_intervals = True`` is driven a decision interval at a time.
 SIM_ENGINES: Registry = Registry("engine")

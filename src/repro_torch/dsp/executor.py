@@ -1,11 +1,22 @@
-"""Sweep executors: whole scenario grids behind one stepping surface.
+"""DSP implementations of the Demeter executor protocols.
 
-:class:`SweepExecutorBase` owns everything per scenario that is not the
-stepping backend — telemetry history, reconfiguration counts, profiling
-costs and the C_max anchor — and :class:`BatchedSweepExecutor` (registered
-as ``"batched"``) steps every scenario through one vectorized NumPy
-:meth:`~repro_torch.dsp.simulator.ClusterModel.step_batch` call. The usage
-and cost normalizations are module-level so every executor shares them.
+Two layers live here:
+
+* the scalar :class:`DSPExecutor` — one target job (a host
+  :class:`~repro_torch.dsp.simulator.SimJob`) behind the
+  :class:`~repro_torch.core.executor.Executor` protocol, what the
+  paper-protocol runner drives; lift it onto the batched control plane
+  with :class:`~repro_torch.core.executor.ScalarAdapter`;
+* the sweep executors — whole scenario grids behind the
+  :class:`~repro_torch.core.executor.BatchExecutor` protocol.
+  :class:`SweepExecutorBase` owns everything per scenario that is not the
+  stepping backend — telemetry history, reconfiguration counts, profiling
+  costs and the C_max anchor. :class:`BatchedSweepExecutor` (registered as
+  ``"batched"``) steps every scenario through one vectorized NumPy
+  :meth:`~repro_torch.dsp.simulator.ClusterModel.step_batch` call, and
+  :class:`ScalarSweepExecutor` (``"scalar"``) one ``SimJob`` per scenario
+  in a Python loop, the reference oracle. The usage and cost
+  normalizations are module-level so every executor shares them.
 
 Profiling runs follow the paper's lifecycle (§2.3, Fig. 3): deploy a clone
 at the predicted rate -> 2-minute stabilization -> 1-minute latency
@@ -17,7 +28,7 @@ seeded ``seed*1009 + k + int(rate)``, as in the reference.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -83,16 +94,18 @@ def observe_digest(model: ClusterModel, cmax: JobConfig,
 def profile_one(model: ClusterModel, cmax: JobConfig, cfg: JobConfig,
                 rate: float, dt: float, seed: int,
                 account: Optional[Callable[[Dict[str, float]], None]] = None,
-                detector_backend: str = "scalar"
+                detector_backend: str = "scalar", device: str = "cuda"
                 ) -> Optional[Dict[str, float]]:
     """Run one profiling clone through the paper's lifecycle.
 
     Returns the USAGE / LATENCY / RECOVERY observation, or None for a failed
     run. ``account`` is called with each step's metrics so callers can charge
     the clone's resource-time; ``detector_backend`` picks the §2.3 anomaly
-    detector path (see :data:`repro_torch.core.registry.DETECTOR_BACKENDS`)."""
+    detector path (see :data:`repro_torch.core.registry.DETECTOR_BACKENDS`)
+    and ``device`` where a ``"bank"`` detector keeps its state."""
     clone = SimJob(model, cfg, seed=seed)
-    tracker = RecoveryTracker(detector_backend=detector_backend)
+    tracker = RecoveryTracker(detector_backend=detector_backend,
+                              device=device)
     t = 0.0
     lat_samples: List[float] = []
     usage_samples: List[Dict[str, float]] = []
@@ -129,6 +142,64 @@ def profile_one(model: ClusterModel, cmax: JobConfig, cfg: JobConfig,
     recovery = tracker.last_recovery_s if recovered is not None \
         else RECOVERY_TIMEOUT_S
     return {USAGE: usage, LATENCY: lavg, RECOVERY: float(recovery)}
+
+
+@dataclass
+class DSPExecutor:
+    """Owns one target job (a host :class:`SimJob`) and serves the scalar
+    :class:`~repro_torch.core.executor.Executor` protocol.
+
+    Its profiling clones run the ``"scalar"`` detector on the host, as the
+    reference's do; a sweep executor's ``detector_backend`` does not reach
+    it."""
+
+    model: ClusterModel
+    cmax: JobConfig
+    seed: int = 0
+    dt: float = 5.0
+    job: SimJob = field(init=False)
+    profile_cost: ProfileCost = field(default_factory=ProfileCost)
+    _metrics_window: List[Dict[str, float]] = field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        self.job = SimJob(self.model, self.cmax, seed=self.seed)
+
+    # -- simulation plumbing (driven by the runner) -------------------------
+    def step(self, rate: float) -> Dict[str, float]:
+        m = self.job.step(rate, self.dt)
+        self._metrics_window.append(m)
+        if len(self._metrics_window) > int(600 / self.dt):
+            self._metrics_window.pop(0)
+        return m
+
+    def window(self, seconds: float) -> List[Dict[str, float]]:
+        n = max(int(seconds / self.dt), 1)
+        return self._metrics_window[-n:]
+
+    # -- Executor protocol ----------------------------------------------------
+    def cmax_config(self) -> Dict[str, float]:
+        return self.cmax.to_dict()
+
+    def current_config(self) -> Dict[str, float]:
+        return self.job.config.to_dict()
+
+    def reconfigure(self, config: Mapping[str, float]) -> None:
+        self.job.reconfigure(JobConfig.from_dict(config))
+
+    def observe(self) -> Dict[str, float]:
+        return observe_digest(self.model, self.cmax, self.window(60.0))
+
+    def allocated_cost(self, config: Mapping[str, float]) -> float:
+        return allocated_cost(self.model, self.cmax, config)
+
+    # -- profiling lifecycle ---------------------------------------------------
+    def profile(self, configs: List[Dict[str, float]], rate: float
+                ) -> List[Optional[Dict[str, float]]]:
+        return [profile_one(self.model, self.cmax, JobConfig.from_dict(c),
+                            rate, self.dt,
+                            seed=self.seed * 1009 + i + int(rate),
+                            account=lambda m: self.profile_cost.add(m, self.dt))
+                for i, c in enumerate(configs)]
 
 
 #: Metric keys kept as full per-scenario history (controller windows +
@@ -263,7 +334,8 @@ class SweepExecutorBase:
                 self.model, self.cmax, JobConfig.from_dict(cfg), rate,
                 self.dt, seed=self.seeds[idx] * 1009 + k + int(rate),
                 account=lambda m, _c=cost: _c.add(m, self.dt),
-                detector_backend=self.detector_backend))
+                detector_backend=self.detector_backend,
+                device=str(self.device)))
         return out
 
     def allocated_cost(self, idx: int, config: Mapping[str, float]) -> float:
@@ -330,3 +402,39 @@ class BatchedSweepExecutor(SweepExecutorBase):
 
     def caught_up(self) -> np.ndarray:
         return self.state.caught_up
+
+
+@SIM_ENGINES.register("scalar")
+class ScalarSweepExecutor(SweepExecutorBase):
+    """Reference oracle: one host SimJob per scenario, stepped in a Python
+    loop."""
+
+    def __init__(self, model: ClusterModel, configs: Sequence[JobConfig],
+                 seeds: Sequence[int], **kwargs):
+        super().__init__(model, configs, seeds, **kwargs)
+        self.jobs = [SimJob(model, c, seed=s)
+                     for c, s in zip(configs, seeds)]
+
+    def _step_impl(self, rates: np.ndarray, dt: float
+                   ) -> Dict[str, np.ndarray]:
+        ms = [job.step(float(r), dt) for job, r in zip(self.jobs, rates)]
+        return {k: np.array([m[k] for m in ms]) for k in ms[0]}
+
+    def inject_failure(self, idx: int) -> None:
+        self.jobs[idx].inject_failure()
+
+    def _reconfigure_impl(self, idx: int, cfg: JobConfig,
+                          restart_s: Optional[float]) -> bool:
+        if self.jobs[idx].config == cfg:
+            return False
+        self.jobs[idx].reconfigure(cfg, restart_s=restart_s)
+        return True
+
+    def config_of(self, idx: int) -> JobConfig:
+        return self.jobs[idx].config
+
+    def workers(self) -> np.ndarray:
+        return np.array([float(j.config.workers) for j in self.jobs])
+
+    def caught_up(self) -> np.ndarray:
+        return np.array([j.caught_up for j in self.jobs])

@@ -4,7 +4,8 @@ A *policy* adapts one controller family to the sweep engine's event loop
 and is registered in :data:`repro_torch.core.registry.CONTROLLERS` under
 the name :attr:`~repro_torch.dsp.sweep.ScenarioSpec.controller` uses.
 
-The policy contract (duck-typed):
+The policy contract (duck-typed; :class:`SweepPolicy` documents the
+required instance surface):
 
 * ``PolicyCls.start_config_for(spec, config) -> JobConfig`` — the
   configuration the scenario's job boots with;
@@ -28,7 +29,7 @@ Optional capabilities the engine detects with ``getattr``:
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional, Protocol
 
 from ..core.config_space import paper_flink_space
 from ..core.demeter import DemeterController
@@ -40,6 +41,18 @@ from .simulator import JobConfig
 
 if TYPE_CHECKING:
     from .sweep import ScenarioSpec, SweepEngine
+
+
+class SweepPolicy(Protocol):
+    """Instance surface every registered sweep policy provides."""
+
+    start_config: JobConfig
+
+    def initial_due(self, eng: "SweepEngine") -> float: ...
+
+    def act(self, eng: "SweepEngine", idx: int, t: float, i: int) -> float:
+        """One decision-point invocation; returns the next due time."""
+        ...
 
 
 class BaselinePolicy:

@@ -272,7 +272,14 @@ def step_batch_arrays(model: ClusterModel, lag: torch.Tensor,
     }
 
 
-class BufferedNormals:
+class SupportsNormal:
+    """Anything exposing ``standard_normal() -> float`` (typing aid)."""
+
+    def standard_normal(self) -> float:  # pragma: no cover - protocol only
+        raise NotImplementedError
+
+
+class BufferedNormals(SupportsNormal):
     """Block-buffered view of a Generator's standard-normal stream.
 
     ``Generator.standard_normal(n)`` gives bit for bit the sequence of ``n``
@@ -496,3 +503,17 @@ class SimJob:
     @property
     def caught_up(self) -> bool:
         return self.downtime_left_s <= 0 and self.lag_events < 1.0
+
+
+def measure_recovery(job: SimJob, rate_fn, t0: float, dt: float,
+                     timeout_s: float = 360.0) -> Optional[float]:
+    """Ground-truth recovery time: failure onset -> caught back up to the
+    head of the queue (paper §2.3's definition). None = exceeded timeout."""
+    job.inject_failure()
+    t = 0.0
+    while t < timeout_s:
+        t += dt
+        job.step(rate_fn(t0 + t), dt)
+        if job.caught_up:
+            return t
+    return None

@@ -9,7 +9,10 @@ two pluggable surfaces:
   whole decision intervals to the device and is driven by
   ``drive_intervals()`` below; ``"batched"``
   (:class:`~repro_torch.dsp.executor.BatchedSweepExecutor`) advances all
-  scenarios one NumPy step at a time through ``drive_ticks()``;
+  scenarios one NumPy step at a time through ``drive_ticks()``, and
+  ``"scalar"`` (:class:`~repro_torch.dsp.executor.ScalarSweepExecutor`)
+  steps one host ``SimJob`` per scenario the same way, the reference
+  oracle;
 * registered controller policies (:mod:`repro_torch.dsp.policies`),
   invoked per decision interval, never per simulation step. Demeter model
   updates are batched across the grid: before any due controller acts,
@@ -18,8 +21,12 @@ two pluggable surfaces:
   Demeter scenario's TSF stream lives in one shared
   :class:`~repro_torch.core.forecast_bank.ForecastBank`.
 
-Failure injection, NR bookkeeping and the 6-minute recovery cap follow the
-paper's Table-3 semantics.
+Everything is configured through one
+:class:`~repro_torch.core.executor.EngineConfig`; the legacy string kwargs
+(``engine=``, ``fit_backend=``, ``forecast_backend=``,
+``detector_backend=``) still work as deprecation shims. Failure injection,
+NR bookkeeping and the 6-minute recovery cap follow the paper's Table-3
+semantics.
 """
 from __future__ import annotations
 
@@ -29,8 +36,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..core.demeter import ModelBank
-from ..core.executor import EngineConfig
+from ..core.demeter import DemeterHyperParams, ModelBank
+from ..core.executor import EngineConfig, coerce_config, warn_legacy_kwarg
 from ..core.forecast import FORECASTER_KINDS
 from ..core.forecast_bank import ForecastBank, make_forecaster
 from ..core.registry import CONTROLLERS, FORECASTERS, SIM_ENGINES
@@ -41,6 +48,12 @@ from .runner import FAILURE_INTERVAL_S, RECOVERY_CAP_S, FailureRecord
 from .simulator import ClusterModel
 from .workloads import (FailureSchedule, NoFailures, PeriodicFailures, Trace,
                         make_trace)
+
+#: Built-in controller names; the authoritative namespace is
+#: :data:`repro_torch.core.registry.CONTROLLERS` (third-party policies
+#: registered there are accepted everywhere these names are).
+CONTROLLER_NAMES = ("static", "reactive", "ds2", "demeter")
+
 
 @dataclass(frozen=True, eq=False)
 class ScenarioSpec:
@@ -206,15 +219,27 @@ class SweepResult:
 class SweepEngine:
     """Executes a ScenarioSpec grid; a thin event loop over registered
     policies and a sweep executor, configured by one
-    :class:`~repro_torch.core.executor.EngineConfig`."""
+    :class:`~repro_torch.core.executor.EngineConfig`. The legacy
+    ``fit_backend=`` / ``forecast_backend=`` / ``detector_backend=`` string
+    kwargs still work as deprecation shims."""
 
     def __init__(self, specs: Sequence[ScenarioSpec], *,
                  config: Optional[EngineConfig] = None,
                  model: Optional[ClusterModel] = None,
-                 recovery_cap_s: float = RECOVERY_CAP_S):
+                 hp: Optional[DemeterHyperParams] = None,
+                 decision_interval_s: Optional[float] = None,
+                 recovery_cap_s: float = RECOVERY_CAP_S,
+                 fit_backend: Optional[str] = None,
+                 forecast_backend: Optional[str] = None,
+                 detector_backend: Optional[str] = None):
         if not specs:
             raise ValueError("empty scenario grid")
-        self.config = config if config is not None else EngineConfig()
+        self._explicit_config = config is not None
+        self.config = coerce_config(config, fit_backend=fit_backend,
+                                    forecast_backend=forecast_backend,
+                                    detector_backend=detector_backend,
+                                    hp=hp,
+                                    decision_interval_s=decision_interval_s)
         # One error surface, before any work: with the shared-bank TSF path,
         # every banked scenario's forecaster must be a kind the ForecastBank
         # can pack (plugin kinds run on the scalar backend).
@@ -256,14 +281,39 @@ class SweepEngine:
         self.forecast_bank: Optional[ForecastBank] = None
         self.policies: List[object] = []
 
+    # -- resolved config conveniences ---------------------------------------
+    @property
+    def hp(self) -> Optional[DemeterHyperParams]:
+        return self.config.hp
+
     @property
     def decision_interval_s(self) -> float:
         return self.config.decision_interval_s
 
+    @property
+    def fit_backend(self) -> str:
+        return self.config.fit_backend
+
+    @property
+    def forecast_backend(self) -> str:
+        return self.config.forecast_backend
+
     # -- main loop -----------------------------------------------------------
-    def run(self) -> SweepResult:
-        """Execute the grid on ``config.sim_backend``."""
+    def run(self, engine: Optional[str] = None) -> SweepResult:
+        """Execute the grid on ``config.sim_backend``.
+
+        ``engine=`` is the deprecated per-run override of the simulation
+        backend; it is validated against
+        :data:`repro_torch.core.registry.SIM_ENGINES`.
+        """
         config = self.config
+        if engine is not None:
+            if self._explicit_config:
+                raise ValueError(
+                    "pass either config=EngineConfig(sim_backend=...) or "
+                    "the legacy engine= kwarg, not both")
+            warn_legacy_kwarg("engine")
+            config = config.replace(sim_backend=SIM_ENGINES.validate(engine))
         executor_cls = SIM_ENGINES.get(config.sim_backend)
 
         S = len(self.specs)
@@ -552,7 +602,13 @@ class SweepEngine:
 
 def run_sweep(specs: Sequence[ScenarioSpec], *,
               config: Optional[EngineConfig] = None,
-              model: Optional[ClusterModel] = None) -> SweepResult:
+              engine: Optional[str] = None,
+              model: Optional[ClusterModel] = None,
+              hp: Optional[DemeterHyperParams] = None,
+              decision_interval_s: Optional[float] = None,
+              fit_backend: Optional[str] = None,
+              forecast_backend: Optional[str] = None,
+              detector_backend: Optional[str] = None) -> SweepResult:
     """Execute a scenario grid in one invocation.
 
     ``config`` defaults to ``EngineConfig()``: the ``"fused"`` engine, the
@@ -562,5 +618,14 @@ def run_sweep(specs: Sequence[ScenarioSpec], *,
     scenarios (``controller="demeter"``) take their GP-fit and TSF paths
     from ``config.fit_backend`` / ``config.forecast_backend`` and their
     forecaster kind from :attr:`ScenarioSpec.forecaster`.
+
+    The ``engine=`` / ``fit_backend=`` / ``forecast_backend=`` /
+    ``detector_backend=`` string kwargs are deprecated shims for the same
+    fields; ``hp`` and ``decision_interval_s`` fold into the config.
     """
-    return SweepEngine(specs, config=config, model=model).run()
+    eng = SweepEngine(specs, config=config, model=model, hp=hp,
+                      decision_interval_s=decision_interval_s,
+                      fit_backend=fit_backend,
+                      forecast_backend=forecast_backend,
+                      detector_backend=detector_backend)
+    return eng.run(engine)

@@ -16,7 +16,7 @@ from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 import numpy as np
 import torch
 
-from .core.forecast_bank import ForecastBank
+from .core.forecast_bank import DetectorBank, ForecastBank
 from .core.gp import GP
 from .dsp.fused import DET_ORDER
 from .dsp.simulator import ClusterModel, JobConfig
@@ -93,6 +93,23 @@ def forecast_family_from_arrays(bank: ForecastBank, kind: str,
                     for f, buf in zip(group._fields, group)])
     fam.load_state(*new)
     bank._drop_family_cache(kind)
+
+
+def detector_bank_from_arrays(bank: DetectorBank,
+                              arrays: Mapping[str, np.ndarray]) -> None:
+    """Load ``bank`` from NumPy copies of a reference ``DetectorBank``'s
+    ``_state`` (its ``_asdict()`` fields), ``_ring`` and ``_rn``, given as
+    one mapping with the keys ``ring`` and ``rn`` beside the state's. Both
+    banks pad their rows to the same power of two, so every shape must
+    match."""
+    names = bank._state._fields + ("ring", "rn")
+    if set(arrays) != set(names):
+        raise ValueError(f"expected arrays {sorted(names)}, got "
+                         f"{sorted(arrays)}")
+    bufs = (*bank._state, bank._ring, bank._rn)
+    t = {n: torch.as_tensor(np.array(arrays[n]), dtype=b.dtype,
+                            device=b.device) for n, b in zip(names, bufs)}
+    bank.load_state([t[n] for n in bank._state._fields], t["ring"], t["rn"])
 
 
 def gp_from_arrays(x: np.ndarray, y_mean: float, y_std: float,

@@ -8,7 +8,8 @@ has no JAX, run them with
 
 They hold the fused-tick, fused-interval, RLS, ARIMA-chunk,
 decode-attention, SSD-scan, flash-attention, grouped-matmul and
-fused-RMSNorm kernels against their plain versions, and the fused engine, a short Demeter sweep, small serving
+fused-RMSNorm kernels against their plain versions, and the fused engine, a short Demeter sweep, the
+detector bank, one short ``run_experiment``, small serving
 runs (dense, mamba2, zamba2, deepseek-moe, deepseek-v2-lite), hubert's
 ``encode`` and pixtral's ``train_loss`` on the card against the same runs
 on the CPU.
@@ -394,6 +395,77 @@ def test_demeter_sweep_on_card_matches_cpu(cuda):
     for a, b in zip(card.scenarios, cpu.scenarios):
         assert a.allclose(b, rtol=1e-9), a.name
 
+
+
+def _detector_streams(n, T, seed):
+    """Throughput-like streams: outages to zero, NaN gaps, inactive rows."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)[:, None]
+    v = rng.uniform(1e3, 8e4, n) * (1 + 0.1 * np.sin(t / 9.0)) \
+        * (1 + 0.01 * rng.normal(0, 1, (T, n)))
+    v[60:80, ::4] = 0.0
+    v[rng.random((T, n)) < 0.03] = np.nan
+    act = np.ones((T, n), bool)
+    act[(t[:, 0] // 20) % 2 == 1, 2::8] = False
+    return v, act
+
+
+@pytest.mark.cuda
+def test_detector_bank_on_card_matches_cpu(cuda):
+    from repro_torch.core import DetectorBank
+    n, T = 64, 200
+    vals, act = _detector_streams(n, T, seed=0)
+    card, cpu = DetectorBank(n, device="cuda"), DetectorBank(n, device="cpu")
+    probe = DetectorBank(n, device="cuda")
+    before = rls_mod.arima_chunk.launches
+    n_flags = 0
+    for i in range(T):
+        shared = i % 50 == 25
+        if shared:             # one sample from the CPU bank's state
+            old = [x.clone() for x in (*cpu._state, cpu._ring)]
+            probe.load_state([x.to(cuda) for x in cpu._state],
+                             cpu._ring.to(cuda), cpu._rn.to(cuda))
+        got = card.observe(vals[i], act[i])
+        want = cpu.observe(vals[i], act[i])
+        np.testing.assert_array_equal(got, want)
+        n_flags += int(got.sum())
+        if shared:
+            np.testing.assert_array_equal(probe.observe(vals[i], act[i]),
+                                          want)
+            # the streams that take the sample, relative to each one's
+            # largest magnitude before or after it (a flagged stream coasts
+            # on its prediction: its residuals are rounding noise)
+            rows = ~torch.as_tensor(want)
+            for a, b, c in zip((*probe._state, probe._ring),
+                               (*cpu._state, cpu._ring), old):
+                a, b, c = (x[rows].cpu().double() for x in (a, b, c))
+                mag = torch.maximum(b.abs(), c.abs()).reshape(len(b), -1)
+                err = (a - b).abs().reshape(len(b), -1).amax(1) \
+                    / mag.amax(1).clamp_min(1e-300)
+                assert float(err.max()) <= 1e-12
+    assert n_flags > 0
+    # one launch a sample for each bank on the card, the probe's included
+    assert rls_mod.arima_chunk.launches - before == T + T // 50
+
+
+@pytest.mark.cuda
+def test_run_experiment_on_card_matches_cpu(cuda):
+    from repro_torch.dsp import run_experiment, ysb_like
+    trace = ysb_like(duration_s=2 * 3600.0, dt_s=10.0)
+    before = rls_mod.arima_chunk.launches
+    card = run_experiment(trace, "demeter", seed=3, config=EngineConfig(
+        fit_backend="scalar"))
+    launches = rls_mod.arima_chunk.launches - before
+    cpu = run_experiment(trace, "demeter", seed=3, config=EngineConfig(
+        device="cpu", fit_backend="scalar"))
+    assert launches > 0 and rls_mod.arima_chunk.launches - before == launches
+    for f in ("rates", "latencies", "usage_cpu", "usage_mem_mb", "workers"):
+        np.testing.assert_allclose(getattr(card, f), getattr(cpu, f),
+                                   rtol=1e-9, err_msg=f)
+    assert card.n_reconfigurations == cpu.n_reconfigurations
+    assert [f.recovery_s for f in card.failures] == \
+        [f.recovery_s for f in cpu.failures]
+    assert card.profile_cpu_s > 0
 
 
 def _attention_operands(B, S, Hkv, G, D, dtype, device, seed=0):

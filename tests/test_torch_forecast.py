@@ -374,7 +374,7 @@ def test_detectors_equal_reference():
     assert mine.episodes == theirs.episodes and mine.episodes
     assert mine.last_recovery_s == theirs.last_recovery_s
     with pytest.raises(ValueError, match="unknown detector backend"):
-        anomaly.RecoveryTracker(detector_backend="bank")
+        anomaly.RecoveryTracker(detector_backend="gpu")
 
 
 @pytest.mark.parametrize("workers,rate", [(24, 60_000.0), (4, 30_000.0),

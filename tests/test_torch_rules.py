@@ -34,6 +34,7 @@ def _env():
 @pytest.mark.parametrize("module", ["repro_torch", "repro_torch.dsp",
                                     "repro_torch.core",
                                     "repro_torch.interop",
+                                    "repro_torch.dsp.runner",
                                     "repro_torch.kernels.flash_attention",
                                     "repro_torch.kernels.grouped_matmul",
                                     "repro_torch.kernels.rmsnorm",
@@ -87,12 +88,12 @@ def test_port_registries_are_its_own():
                                            FORECASTERS, SIM_ENGINES)
     from repro_torch.core import EngineConfig
     EngineConfig(device="cpu")           # registers every built-in
-    assert SIM_ENGINES.available() == ("batched", "fused")
+    assert SIM_ENGINES.available() == ("batched", "fused", "scalar")
     assert CONTROLLERS.available() == ("demeter", "ds2", "reactive", "static")
     assert FORECASTERS.available() == ("arima", "holt", "seasonal")
     assert FIT_BACKENDS.available() == ("bank", "scalar")
     assert FORECAST_BACKENDS.available() == ("bank", "scalar")
-    assert DETECTOR_BACKENDS.available() == ("scalar",)
+    assert DETECTOR_BACKENDS.available() == ("bank", "scalar")
     assert "repro.core.registry" not in sys.modules or \
         "torch" not in sys.modules["repro.core.registry"].SIM_ENGINES
 
@@ -100,11 +101,14 @@ def test_port_registries_are_its_own():
 def _builders():
     """Each entry point that places tensors, called without ``device=``."""
     import numpy as np
-    from repro_torch.core import (DemeterController, ForecastBank, GP, GPBank,
-                                  ModelBank, SegmentStore, batched_posterior,
-                                  paper_flink_space)
+    from repro_torch.core import (DemeterController, DetectorBank,
+                                  ForecastBank, GP, GPBank, ModelBank,
+                                  RecoveryTracker, SegmentStore,
+                                  batched_posterior, paper_flink_space)
     from repro_torch.dsp import (BatchedSweepExecutor, ClusterModel,
-                                 FusedSweepExecutor, JobConfig)
+                                 FusedSweepExecutor, JobConfig,
+                                 ScalarSweepExecutor, profile_one,
+                                 run_experiment, ysb_like)
     x = np.random.default_rng(0).uniform(0, 1, (4, 2))
     y = np.array([0.0, 1.0, 0.5, 2.0])
     gp = GP(x=x, y_mean=0.0, y_std=1.0, theta=np.zeros(4, np.float32),
@@ -133,6 +137,16 @@ def _builders():
             *executor_args, dt=5.0, n_steps=4),
         "BatchedSweepExecutor": lambda: BatchedSweepExecutor(
             *executor_args, dt=5.0, n_steps=4),
+        "ScalarSweepExecutor": lambda: ScalarSweepExecutor(
+            *executor_args, dt=5.0, n_steps=4),
+        "DetectorBank": lambda: DetectorBank(2),
+        "RecoveryTracker(bank)": lambda: RecoveryTracker(
+            detector_backend="bank"),
+        "profile_one(bank)": lambda: profile_one(
+            ClusterModel(), JobConfig(), JobConfig(), 4e4, 5.0, seed=0,
+            detector_backend="bank"),
+        "run_experiment": lambda: run_experiment(
+            ysb_like(duration_s=600.0), "static"),
         "ForecastBank": lambda: ForecastBank(["arima", "holt"]),
         "GPBank.fit": lambda: GPBank.fit([(x, y)]),
         "batched_posterior": lambda: batched_posterior([gp], x),
@@ -143,7 +157,9 @@ def _builders():
 
 
 @pytest.mark.parametrize("entry", sorted(
-    ["FusedSweepExecutor", "BatchedSweepExecutor", "ForecastBank",
+    ["FusedSweepExecutor", "BatchedSweepExecutor", "ScalarSweepExecutor",
+     "DetectorBank", "RecoveryTracker(bank)", "profile_one(bank)",
+     "run_experiment", "ForecastBank",
      "GPBank.fit", "batched_posterior", "ModelBank", "DemeterController",
      "ServingEngine", "init_params", "calibrate",
      "launch.serve.run_engine"]))
