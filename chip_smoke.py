@@ -15,8 +15,9 @@ Phases, each of which exits non-zero on failure:
    metrics bit for bit, the detector within 1e-12, equal triggers),
    ``rls_update`` (K1's one step, float64 and float32), ``arima_chunk``
    (K1 as the forecast bank runs it: a flush of T ticks a launch, at
-   k = 5, 9, 17, 8 and 288 streams, T = 4, 12, 128; every output within
-   1e-12 of each stream's scale, no spill at these orders), each of the
+   k = 5, 9, 17, 8 and 288 streams, T = 4, 12, 128, and as the fleet soak
+   flushes it, 1 000 streams at k = 9, T = 1; every output within 1e-12
+   of each stream's scale, no spill at these orders), each of the
    last two also timed against the per-tick path it replaced and its
    host wall,
    ``decode_attention`` (K3, split over positions: the serving shape beside
@@ -142,7 +143,29 @@ Phases, each of which exits non-zero on failure:
     seed 3, scalar GP fits) on ``cuda`` and ``cpu`` (arrays at rtol 1e-9,
     equal reconfigurations and failure records); phase 7's grid with the
     bank detector against phase 7's card run, and on the scalar engine
-    against the batched engine, at rtol 1e-9.
+    against the batched engine, at rtol 1e-9;
+26. obs on the sweep stack: phase 7's grid (bank GP fits) on the card with
+    obs off, then on: ``to_json()`` equal apart from the walls; the spans
+    ``sweep.run``, ``engine.fused.interval``, ``forecast.flush``,
+    ``gp_bank.fit`` and ``demeter.acquire`` present; ``sweep.intervals``
+    equal to K2's launches and K1's launches between the ARIMA
+    flush-and-rolls and those plus the flushes; the per-phase walls; a
+    Chrome trace written under ``build/obs/`` and loaded back; the aten-op
+    probe over one ``step_interval`` and one forecast-bank flush on the
+    card (equal operation counts with obs off and on); the reference
+    test's overhead bound (best of 5, at most 2% plus 2 ms an interval),
+    printed with the relative overhead, a fresh executor's first interval
+    and the steady state's;
+27. the fleet service: ``run_soak`` at the loadgen's defaults (1 000 jobs,
+    8 epochs, seed 0) on the card twice (the second with obs on: the walls
+    of its spans) and on the CPU: equal digests and ``stats()``; K1 once
+    per forecast-bank flush and once per detector sample; the 64-job x
+    30-epoch profiling soak (seed 7) card against CPU under the scalar GP
+    fits, then on the card with the bank fits and obs on, timed, with the
+    scalar fits' decisions; ``python -m
+    repro_torch.fleet --device cuda`` fed a JSON-lines script with a
+    ``"serving"`` job on phase 10's measured profile, answering as an
+    in-process CPU service does.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
@@ -152,8 +175,9 @@ on the qwen2-7b serving path, K5 on the mamba2-1.3b one, K4 on the
 hubert-xlarge encoder path, K6 on the deepseek-moe-16b one) beside its
 times at that path's shapes; ``arima_chunk`` also lists, under
 ``paths``, its launches on the detector bank's path (phase 23, beside its
-times at 1 024 streams) and on ``run_experiment``'s Demeter cells (phase
-24). ``fused_tick`` and ``rls_update`` keep their
+times at 1 024 streams), on ``run_experiment``'s Demeter cells (phase
+24) and on the fleet soak (phase 27, beside its times at the soak's
+forecast shape). ``fused_tick`` and ``rls_update`` keep their
 phase-3 times with the launches the Demeter path counted, and K7, which
 no model of the reference calls, those counted on the deepseek-moe-16b
 run: the script fails unless these three are 0.
@@ -240,9 +264,9 @@ PROTOCOL_CARD_VS_CPU = (2 * 3600.0, 3)
 #: Demeter main path width: paper seeds (2 scenarios each; seed 0 alone is
 #: the paper's own two 18 h runs, §3.4, Figs. 5-6). On NVIDIA H100 80GB
 #: HBM3, 700.00 W the path took 75.0 s at 1 seed and 153.0 s at 3 (about
-#: 39 s a seed, nearly all host-bound GP fits); with the serving phases the
-#: whole script took 232.9 s and 359.6 s on two machines, so 4 seeds stay
-#: inside half the 1200-s limit even on a host 30% slower.
+#: 39 s a seed, nearly all host-bound GP fits). With every later phase the
+#: whole script took 589.4 s and, on a slower host, 822.2 s: inside the
+#: 1200-s limit, though not inside half of it on the slower host.
 DEMETER_SEEDS = 4
 
 SWEEP_ARRAYS = ("rates", "latencies", "usage_cpu", "usage_mem_mb", "workers",
@@ -688,14 +712,15 @@ def check_fused_interval(S: int, K: int) -> dict:
 
 
 def chunk_operands(B: int, k: int, T: int, seed: int, device,
-                   detector: bool = False):
+                   defaults: bool = False):
     """The ARIMA family's state after a 40-tick warm-up and a (T, B) chunk
     of ticks in thousands of events/s: orders p up to k - 1, depths 1 and
     2, 5% NaN gaps, two padding ticks at the end of a chunk of 4 or more,
     and one stream whose 1e308 spike overflows its next step (the
-    divergence reset). ``detector`` gives every stream the detector bank's
-    model instead (p = k - 1, d = 1: one tail, forgetting 0.995, ridge 10)
-    and no spike.
+    divergence reset). ``defaults`` gives every stream the banks' default
+    model instead (p = k - 1, d = 1: one tail, forgetting 0.995, ridge 10;
+    the detector's at k = 5, the fleet's forecaster at k = 9) and no
+    spike.
     Returns (state, params with the trace cap, vals)."""
     import numpy as np
     import torch
@@ -706,7 +731,7 @@ def chunk_operands(B: int, k: int, T: int, seed: int, device,
     d = rng.integers(1, 3, B)
     ridge = rng.uniform(1.0, 20.0, B)
     lam = rng.uniform(0.97, 1.0, B)
-    if detector:
+    if defaults:
         p, d = np.full(B, k - 1), np.ones(B, np.int64)
         ridge, lam = np.full(B, 10.0), np.full(B, 0.995)
     ts = np.arange(T + 40)[:, None]
@@ -717,7 +742,7 @@ def chunk_operands(B: int, k: int, T: int, seed: int, device,
     if T >= 4:
         chunk[-2:] = np.nan
     spike = max(T - 4, 0)
-    if not detector:
+    if not defaults:
         chunk[spike, -1] = 1e308
         if spike + 1 < T:
             chunk[spike + 1, -1] = 40.0
@@ -725,7 +750,7 @@ def chunk_operands(B: int, k: int, T: int, seed: int, device,
     state = [torch.zeros((B, k), **f64),
              torch.as_tensor(ridge[:, None, None] * np.eye(k), **f64),
              torch.zeros((B, k - 1), **f64),
-             torch.zeros((B, 1 if detector else 2), **f64),
+             torch.zeros((B, 1 if defaults else 2), **f64),
              torch.zeros(B, dtype=torch.int64, device=device),
              torch.zeros(B, **f64)]
     params = [torch.as_tensor(p, device=device),
@@ -761,18 +786,20 @@ def arima_design(k: int) -> str:
     return f"arima_chunk_kernel<{kc}>"
 
 
-def check_arima_chunk(B: int, k: int, T: int, detector: bool = False
+def check_arima_chunk(B: int, k: int, T: int, model: str = "forecast bank"
                       ) -> dict:
     """The CUDA ARIMA chunk against its plain version: every output within
     1e-12 of each stream's scale, do_rls and count equal, the same bits on
     a second call, no spill at the bank's orders; timed beside the plain
-    version and the per-tick path it replaces. ``detector``: at the
-    detector bank's model (see :func:`chunk_operands`)."""
+    version and the per-tick path it replaces. ``model``: "forecast bank"
+    (mixed orders and depths), or "detector" / "fleet forecaster" (the
+    banks' default model, see :func:`chunk_operands`)."""
     import torch
     from repro_torch.kernels import rls_update as kmod
     from repro_torch.kernels.ref import arima_chunk_ref
-    state, params, vals = chunk_operands(B, k, T, seed=B * 1000 + k * 10 + T,
-                                         device="cuda", detector=detector)
+    state, params, vals = chunk_operands(
+        B, k, T, seed=B * 1000 + k * 10 + T, device="cuda",
+        defaults=model != "forecast bank")
 
     def run(fn, st=None):
         st = st or [x.clone() for x in state]
@@ -818,7 +845,7 @@ def check_arima_chunk(B: int, k: int, T: int, detector: bool = False
     with per_tick_kernels():
         old = slow_ms(lambda: run(arima_chunk_ref, st))
     return {"streams": B, "k": k, "ticks": T,
-            "model": "detector" if detector else "forecast bank",
+            "model": model,
             "max_rel_err": worst,
             "max_abs_err": max_err, "bytes": n_bytes,
             "ms": device_ms(call), "dispatch_ms": host_ms(call),
@@ -1948,6 +1975,397 @@ def paper_protocol_card_vs_cpu(grid_results, devices=("cuda", "cpu")) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# obs and the fleet service
+# ---------------------------------------------------------------------------
+
+#: SweepResult keys that are timers or the engine label (copied from the
+#: reference's tests/helpers/sharded_diff.py): obs off and on must agree on
+#: everything else bit for bit
+VOLATILE = ("engine", "wall_s", "model_update_wall_s",
+            "forecast_update_wall_s", "model_update_compile_wall_s",
+            "forecast_update_compile_wall_s")
+#: Phase 26's spans that the Demeter grid must open
+OBS_SPANS = ("sweep.run", "engine.fused.interval", "forecast.flush",
+             "gp_bank.fit", "demeter.acquire")
+#: where phase 26 writes its Chrome trace (build/ is ignored by git)
+OBS_TRACE = REPO / "build" / "obs" / "phase26_trace.json"
+#: Phase 27: the loadgen CLI's defaults (1 000 jobs, 8 epochs, seed 0; the
+#: slab sized to the jobs) and the reference test's profiling soak
+SOAK_MAIN = dict(n_jobs=1000, epochs=8, seed=0)
+#: K1 as that soak flushes its forecast bank (phase 3 checks and times it):
+#: one stream a job, the ARIMA forecaster's default model (p = 8, so k = 9;
+#: d = 1) and one staged mean a job and epoch (T = 1)
+FLEET_CHUNK = (SOAK_MAIN["n_jobs"], MAIN_K, 1)
+SOAK_PROFILING = dict(n_jobs=64, epochs=30, seed=7, profiling=True)
+#: spans whose walls phase 27 prints
+FLEET_SPANS = ("fleet.epoch", "fleet.ingest.drain", "forecast.flush",
+               "detector.observe", "fleet.profile", "gp_bank.fit")
+
+
+def strip_volatile(res) -> dict:
+    return {k: v for k, v in res.to_json().items() if k not in VOLATILE}
+
+
+def span_walls(tracer, names) -> dict:
+    """Each named span's count and summed wall (ms) in ``tracer``."""
+    out = {}
+    for name in names:
+        durs = [r.dur_ns for r in tracer.events if r.name == name]
+        out[name] = {"count": len(durs), "wall_ms": sum(durs) / 1e6}
+    return out
+
+
+def obs_phase(device: str = "cuda") -> dict:
+    """Phase 26: phase 7's grid (bank GP fits) on ``device`` with obs off,
+    then on: equal ``to_json()`` apart from the walls, the spans present,
+    ``sweep.intervals`` equal to K2's launches and the forecast-flush
+    counters bracketing K1's; the per-phase walls; a Chrome trace written
+    and loaded back; the aten-op probe over one ``step_interval`` and one
+    forecast-bank flush; the overhead bound of the reference's test."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import ForecastBank
+    from repro_torch.dsp import (ClusterModel, FusedSweepExecutor, JobConfig,
+                                 SweepEngine)
+    from repro_torch.kernels import fused_tick as k2
+    from repro_torch.kernels import rls_update as k1
+    specs, config = demeter_grid()
+    config = config.replace(device=device, fit_backend="bank")
+    runs, engines, walls = {}, {}, {}
+    for on in (False, True):
+        eng = SweepEngine(specs, config=config)
+        obs.disable()
+        obs.reset()
+        if on:
+            obs.enable()
+        k1.arima_chunk.launches = k2.fused_interval.launches = 0
+        t0 = time.perf_counter()
+        try:
+            runs[on] = eng.run()
+            sync(device)
+        finally:
+            obs.disable()
+        walls[on] = time.perf_counter() - t0
+        engines[on] = eng
+    launches = {"fused_interval": k2.fused_interval.launches,
+                "arima_chunk": k1.arima_chunk.launches}
+    eng = engines[True]
+    if strip_volatile(runs[True]) != strip_volatile(runs[False]):
+        fail("obs: the Demeter grid's results differ with obs on: "
+             + first_difference(runs[True].scenarios[0],
+                                runs[False].scenarios[0]))
+    snap = obs.snapshot()
+    counters, gauges = snap["counters"], snap["gauges"]
+    names = {r.name for r in obs.tracer().events}
+    missing = [n for n in OBS_SPANS if n not in names]
+    if missing:
+        fail(f"obs: spans {missing} missing from the Demeter grid's trace")
+    if not counters["sweep.intervals"] == eng.executor.intervals_stepped \
+            == (launches["fused_interval"] if device == "cuda"
+                else counters["sweep.intervals"]) > 0:
+        fail(f"obs: sweep.intervals {counters['sweep.intervals']} for "
+             f"{launches['fused_interval']} fused_interval launches")
+    # K1 runs once per ARIMA chunk: in a flush that found ARIMA rows staged
+    # (a forecast.flush span) or in an ARIMA read's flush_and_roll
+    rolls = sum(1 for r in obs.tracer().events
+                if r.name == "forecast.flush_and_roll"
+                and r.attrs.get("family") == "arima")
+    chunks = eng.forecast_bank.arima_chunks
+    if device == "cuda" and not (
+            launches["arima_chunk"] == chunks
+            == gauges["launches.arima_chunk"] > 0
+            and rolls <= chunks <= rolls
+            + counters["sweep.forecast_flushes"]):
+        fail(f"obs: arima_chunk launched {launches['arima_chunk']} times "
+             f"for {chunks} chunks, {rolls} ARIMA flush-and-rolls and "
+             f"{counters['sweep.forecast_flushes']} flushes")
+    phase_walls = {k: v for k, v in counters.items()
+                   if k.startswith("phase.")}
+    OBS_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    obs.write_chrome_trace(str(OBS_TRACE))
+    doc = json.loads(OBS_TRACE.read_text())
+    if doc["otherData"]["schema"] != obs.TRACE_SCHEMA or \
+            len(doc["traceEvents"]) != len(obs.tracer().events) or \
+            doc["otherData"]["metrics"]["counters"] != counters:
+        fail(f"obs: the Chrome trace {OBS_TRACE} did not load back")
+    # the aten-op probe on the card: one interval and one flush
+    ex = FusedSweepExecutor(ClusterModel(), [JobConfig()] * 8,
+                            seeds=range(8), dt=DT, n_steps=64,
+                            device=device)
+    rates = np.full((MAIN_INTERVAL, 8), 4.0e4)
+    ex.step_interval(rates)              # the config copies, once
+    bank = ForecastBank(["arima"] * 8, device=device)
+    rng = np.random.default_rng(0)
+
+    def flush():
+        for _ in range(MAIN_CHUNK):
+            for r in range(8):
+                bank.stage(r, float(rng.uniform(1e3, 8e4)))
+        bank.flush()
+
+    flush()
+    probes = {}
+    for label, fn, args in (("step_interval", ex.step_interval, (rates,)),
+                            ("forecast flush", flush, ())):
+        rep = obs.instrumentation_probe(label, fn, args)
+        if not rep.ok:
+            fail(f"obs probe {label}: {rep.violations}")
+        probes[label] = {"aten_ops": rep.baseline,
+                         "with_obs": rep.with_obs}
+
+    overhead = obs_overhead(device)
+    out = {"grid_wall_s": {"off": walls[False], "on": walls[True]},
+           "spans": len(names), "span_names": sorted(names),
+           "counters": {k: v for k, v in counters.items()
+                        if not k.startswith("phase.")},
+           "phase_walls_s": phase_walls, "gauges": gauges,
+           "launches": launches, "arima_flush_and_rolls": rolls,
+           "trace": str(OBS_TRACE.relative_to(REPO)),
+           "trace_events": len(doc["traceEvents"]),
+           "probe": probes, "overhead": overhead}
+    print("obs " + json.dumps(out), flush=True)
+    return out
+
+
+def obs_overhead(device: str = "cuda", fresh: int = 10,
+                 steady: int = 200) -> dict:
+    """What obs costs the fused engine's interval (4 scenarios, 16 ticks).
+    The reference test's bound: a fresh executor's first interval, best of
+    5 with obs off and on in turn, at most 2% plus 2 ms; printed with the
+    relative overhead beside the 2%. Then the same first interval at best
+    of ``fresh``, and the steady state: one executor stepped ``steady``
+    intervals with obs on and off in turn (medians)."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.dsp import ClusterModel, FusedSweepExecutor, JobConfig
+    rates = np.full((16, 4), 1000.0)
+
+    def make_ex(intervals: int = 8):
+        return FusedSweepExecutor(ClusterModel(), [JobConfig()] * 4,
+                                  seeds=range(4), dt=DT,
+                                  n_steps=16 * intervals, device=device)
+
+    def run_once(ex, on: bool) -> float:
+        if on:
+            obs.enable(clear=True)
+        try:
+            t0 = time.perf_counter()
+            ex.step_interval(rates)
+            sync(device)
+            return time.perf_counter() - t0
+        finally:
+            obs.disable()
+
+    def first_intervals(n: int) -> dict:
+        best = {False: math.inf, True: math.inf}
+        for _ in range(n):
+            for on in (False, True):
+                best[on] = min(best[on], run_once(make_ex(), on))
+        return {"off": best[False], "on": best[True],
+                "extra_us": (best[True] - best[False]) * 1e6,
+                "rel": best[True] / best[False] - 1.0}
+
+    run_once(make_ex(), False)
+    ref = first_intervals(5)
+    ref["bound_s"] = ref["off"] * 1.02 + 2e-3
+    if not ref["on"] <= ref["bound_s"]:
+        fail(f"obs overhead: {ref['off']} s -> {ref['on']} s an interval, "
+             f"bound {ref['bound_s']} s")
+    first = first_intervals(fresh)
+    ex = make_ex(2 * steady + 1)
+    run_once(ex, False)
+    walls = {False: [], True: []}
+    for i in range(2 * steady):
+        walls[bool(i % 2)].append(run_once(ex, bool(i % 2)))
+    med = {on: float(np.median(w)) for on, w in walls.items()}
+    obs.reset()
+    out = {"reference_test": ref, "first_interval": first,
+           "steady": {"off": med[False], "on": med[True],
+                      "extra_us": (med[True] - med[False]) * 1e6,
+                      "rel": med[True] / med[False] - 1.0,
+                      "intervals": steady}}
+    print(f"obs overhead: reference test {ref['off'] * 1e3:.4f} -> "
+          f"{ref['on'] * 1e3:.4f} ms an interval ({ref['rel']:+.2%}; bound "
+          f"2% + 2 ms = {ref['bound_s'] * 1e3:.4f} ms); first interval, "
+          f"best of {fresh}: {first['extra_us']:+.1f} us "
+          f"({first['rel']:+.2%}); steady state, median of {steady}: "
+          f"{out['steady']['extra_us']:+.1f} us "
+          f"({out['steady']['rel']:+.2%})", flush=True)
+    return out
+
+
+#: one JSON-lines script for the service on the card: two sim jobs and one
+#: serving job (phase 10's measured profile), telemetry, epochs, an error,
+#: a departure
+def fleet_script(decode_step_s: float, prefill_s: float) -> list:
+    script = [{"op": "register_job", "job_id": "a", "backend": "sim"},
+              {"op": "register_job", "job_id": "b", "backend": "sim",
+               "params": {"seed": 3}},
+              {"op": "register_job", "job_id": "s", "backend": "serving",
+               "params": {"decode_step_s": decode_step_s,
+                          "prefill_s": prefill_s}}]
+    for epoch in range(6):
+        t = 60.0 * epoch + 30.0
+        # the serving job overloads once while cold: a revert to C_max
+        script += [{"op": "report_telemetry", "job_id": j, "t": t,
+                    "metrics": {"rate": r + 50.0 * epoch, "latency": lat,
+                                "usage": 0.95 if (j, epoch) == ("s", 2)
+                                else 0.5}}
+                   for j, r, lat in (("a", 800.0, 1.2), ("b", 2e3, 1.8),
+                                     ("s", 40.0, 0.9))]
+        script.append({"op": "run_epoch"})
+    script += [{"op": "recommend", "job_id": "s"},
+               {"op": "recommend", "job_id": "a"},
+               {"op": "nope"}, {"op": "deregister_job", "job_id": "b"},
+               {"op": "run_epoch"}, {"op": "stats"}, {"op": "shutdown"}]
+    return script
+
+
+def fleet_service(decode_step_s: float, prefill_s: float,
+                  device: str = "cuda") -> dict:
+    """``python -m repro_torch.fleet --device <device>`` as a subprocess
+    fed a JSON-lines script; its responses must equal an in-process CPU
+    service's to the same script."""
+    import io
+    import os
+    from repro_torch.core import EngineConfig
+    from repro_torch.fleet import FleetAPI, FleetConfig, serve_jsonl
+    script = "".join(json.dumps(r) + "\n"
+                     for r in fleet_script(decode_step_s, prefill_s))
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.fleet", "--capacity", "8",
+         "--device", device], input=script, env=env, cwd=str(REPO),
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"fleet service: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    want = io.StringIO()
+    serve_jsonl(FleetAPI(config=EngineConfig(device="cpu"),
+                         fleet=FleetConfig(capacity=8)),
+                io.StringIO(script), want)
+    if proc.stdout != want.getvalue():
+        fail("fleet service: the responses on the card differ from the "
+             "CPU's:\n" + proc.stdout[-2000:] + "\n---\n"
+             + want.getvalue()[-2000:])
+    responses = [json.loads(line) for line in proc.stdout.splitlines()]
+    rec = responses[-7]
+    if rec.get("policy") != "demeter" or "replicas" not in rec["config"] \
+            or responses[-2]["decisions"] != 1:
+        fail(f"fleet service: the serving job did not revert and warm: "
+             f"{rec}, {responses[-2]}")
+    out = {"requests": len(responses), "wall_s": wall,
+           "serving_job": rec, "stats": responses[-2]}
+    print("fleet service " + json.dumps(out), flush=True)
+    return out
+
+
+def fleet_phase(decode_step_s: float, prefill_s: float,
+                device: str = "cuda") -> dict:
+    """Phase 27: the 1 000-job soak on the card twice (the second with obs
+    on) and on the CPU: equal digests and stats; K1 once per forecast-bank
+    flush and once per detector sample; the 64 x 30 profiling soak card
+    against CPU under scalar fits, then on the card with the bank fits and
+    obs on (the same digest, its span walls and its wall); the
+    JSON-lines service on the card (``device``; the CPU legs stay on the
+    CPU)."""
+    from repro_torch import obs
+    from repro_torch.core import EngineConfig
+    from repro_torch.fleet import SoakConfig, run_soak
+    from repro_torch.kernels import rls_update as k1
+    main = SoakConfig(**SOAK_MAIN)
+    runs, launches = {}, {}
+    for label, dev, on in (("card", device, False),
+                           ("card, obs on", device, True),
+                           ("cpu", "cpu", False)):
+        obs.reset()
+        if on:
+            obs.enable()
+        k1.arima_chunk.launches = 0
+        try:
+            runs[label] = run_soak(main, EngineConfig(device=dev))
+            sync(dev)
+        finally:
+            obs.disable()
+        launches[label] = k1.arima_chunk.launches
+        if on:
+            snap, walls = obs.snapshot(), span_walls(obs.tracer(),
+                                                     FLEET_SPANS)
+    ref = runs["card"]
+    for label, r in runs.items():
+        if r["decision_digest"] != ref["decision_digest"] \
+                or r["stats"] != ref["stats"]:
+            fail(f"fleet soak: {label} differs from the card's first run: "
+                 f"{r['stats']} vs {ref['stats']}")
+    c = snap["counters"]
+    k1_per_flush = c["sweep.forecast_flushes"] + c["sweep.detector_samples"]
+    if not (launches["card"] == launches["card, obs on"]
+            == (k1_per_flush if device == "cuda" else 0)
+            and c["sweep.detector_samples"] == main.epochs
+            and launches["cpu"] == 0):
+        fail(f"fleet soak: arima_chunk launches {launches} for "
+             f"{c['sweep.forecast_flushes']} flushes and "
+             f"{c['sweep.detector_samples']} detector samples")
+    if not (ref["decisions"] > 0 and ref["churned"] > 0
+            and ref["stats"]["warm"] > 0.9 * main.n_jobs):
+        fail(f"fleet soak: {ref['stats']}")
+    # the profiling soak: card against CPU on the scalar fits, then the
+    # bank fits on the card (ModelBank.batch_refresh on the GP bank)
+    prof = SoakConfig(**SOAK_PROFILING)
+    on_card, on_cpu = (run_soak(prof, EngineConfig(device=d,
+                                                   fit_backend="scalar"))
+                       for d in (device, "cpu"))
+    if on_card["decision_digest"] != on_cpu["decision_digest"] \
+            or on_card["stats"] != on_cpu["stats"]:
+        fail(f"profiling soak: card {on_card['stats']} vs CPU "
+             f"{on_cpu['stats']}")
+    # the bank fits, timed and traced in one run with obs on: the same
+    # decisions as the scalar fits (as on the CPU)
+    obs.reset()
+    obs.enable()
+    try:
+        bank = run_soak(prof, EngineConfig(device=device))
+    finally:
+        obs.disable()
+    prof_walls = span_walls(obs.tracer(), FLEET_SPANS)
+    gp_fits = obs.snapshot()["counters"].get("sweep.gp_fits", 0)
+    obs.reset()
+    if bank["decision_digest"] != on_card["decision_digest"] \
+            or not gp_fits > 0 or not prof_walls["fleet.profile"]["count"]:
+        fail(f"profiling soak on the bank fits: {gp_fits} GP fits, "
+             f"{prof_walls}, digests {bank['decision_digest']} (bank) / "
+             f"{on_card['decision_digest']} (scalar)")
+    sync(device)
+    service = fleet_service(decode_step_s, prefill_s, device)
+    keys = ("wall_s", "decisions", "decisions_per_s",
+            "ingest_samples_per_s", "delivered", "held_late", "lost",
+            "failures", "churned")
+    out = {"soak": SOAK_MAIN,
+           "card": {k: ref[k] for k in keys},
+           "card_obs_on": {k: runs["card, obs on"][k] for k in keys},
+           "cpu": {k: runs["cpu"][k] for k in keys},
+           "digest": ref["decision_digest"], "stats": ref["stats"],
+           "arima_chunk_launches": launches["card"],
+           "forecast_flushes": c["sweep.forecast_flushes"],
+           "detector_samples": c["sweep.detector_samples"],
+           "span_walls": walls,
+           "phase_walls_s": {k: v for k, v in c.items()
+                             if k.startswith("phase.")},
+           "profiling_soak": {
+               "config": SOAK_PROFILING,
+               "scalar_fits_wall_s": {"card": on_card["wall_s"],
+                                      "cpu": on_cpu["wall_s"]},
+               "bank_fits_obs_on_wall_s": bank["wall_s"],
+               "decisions": bank["decisions"], "gp_fits": gp_fits,
+               "stats": bank["stats"], "span_walls": prof_walls},
+           "service_wall_s": service["wall_s"]}
+    print("fleet " + json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the serving path
 # ---------------------------------------------------------------------------
 
@@ -2687,8 +3105,11 @@ def main() -> int:
     # p = 4, d = 1, in a profiling clone (2 streams) and the fleet's slab
     det_rows = {}
     for B, T in DETECTOR_CHUNKS:
-        det_rows[B] = r = check_arima_chunk(B, DETECTOR_K, T, detector=True)
+        det_rows[B] = r = check_arima_chunk(B, DETECTOR_K, T, "detector")
         print("kernel arima_chunk detector " + json.dumps(r), flush=True)
+    # ... and as the fleet soak (phase 27) flushes its forecast bank
+    fleet_chunk = check_arima_chunk(*FLEET_CHUNK, "fleet forecaster")
+    print("kernel arima_chunk fleet " + json.dumps(fleet_chunk), flush=True)
     # K3 at the serving path's shapes (qwen2-7b: Hkv = 4, G = 7, D = 128;
     # 16 slots of 4096), then over groups and head dims
     serve_cfg = get_config(SERVE_ARCH)
@@ -2845,7 +3266,7 @@ def main() -> int:
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 10. autoscaled serving ---------------------------------------------
-    autoscaled_serving()
+    autoscale = autoscaled_serving()
     print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 11. the SSM serving main path (mamba2-1.3b) ---------------------
@@ -2937,6 +3358,18 @@ def main() -> int:
     paper_protocol_card_vs_cpu(grid["results"])
     print(f"phase 25 done at {time.perf_counter() - t_start:.1f} s")
 
+    # -- 26. obs on the sweep stack ------------------------------------------
+    t_phase = time.perf_counter()
+    obs_phase()
+    print(f"phase 26 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- 27. the fleet service: 1 000 jobs, K1 in every epoch ---------------
+    t_phase = time.perf_counter()
+    fleet = fleet_phase(autoscale["decode_step_s"], autoscale["prefill_s"])
+    print(f"phase 27 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
     # -- summary lines: each kernel's launches on its main path and its
     # times at that path's shapes
     tick = tick_rows[main_tick_rows]
@@ -2970,7 +3403,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/rls_update.py:41",
         "launches": main_path["launches"]["arima_chunk"],
         "max_abs_err": max(r["max_abs_err"] for r in
-                           (*chunk_rows.values(), *det_rows.values())),
+                           (*chunk_rows.values(), *det_rows.values(),
+                            fleet_chunk)),
         "ms": chunk["ms"], "plain_ms": chunk["plain_ms"],
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
         "library_ms": None,
@@ -2983,7 +3417,18 @@ def main() -> int:
                 for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                             "max_abs_err")}},
             "run_experiment demeter": {
-                "launches": protocol["arima_chunk_launches"]}},
+                "launches": protocol["arima_chunk_launches"]},
+            # the soak's flushes, timed at their shape (its detector
+            # samples run at the detector bank's shape above)
+            "fleet soak": {
+                "launches": fleet["arima_chunk_launches"], **SOAK_MAIN,
+                "forecast_flushes": fleet["forecast_flushes"],
+                "detector_samples": fleet["detector_samples"],
+                "streams": FLEET_CHUNK[0], "k": FLEET_CHUNK[1],
+                "ticks": FLEET_CHUNK[2], **{
+                    key: fleet_chunk[key]
+                    for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "max_abs_err")}}},
     }, {
         "name": "fused_tick", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_tick.cu",

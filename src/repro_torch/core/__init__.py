@@ -22,7 +22,8 @@ from .gp import GP, restart_inits
 from .gp_bank import GPBank, batched_posterior, bucket_pow2
 from .latency import LatencyConstraint
 from .registry import (CONTROLLERS, DETECTOR_BACKENDS, FIT_BACKENDS,
-                       FORECAST_BACKENDS, FORECASTERS, SIM_ENGINES, Registry)
+                       FLEET_BACKENDS, FORECAST_BACKENDS, FORECASTERS,
+                       SIM_ENGINES, Registry)
 from .rgpe import RGPEnsemble, build_rgpe
 from .segments import (LATENCY, METRICS, RECOVERY, USAGE, Observation,
                        Segment, SegmentStore)
@@ -43,7 +44,7 @@ __all__ = [
     "BatchExecutor", "EngineConfig", "ProfileSpec", "ScalarAdapter",
     "ScenarioView", "coerce_config", "Registry", "CONTROLLERS",
     "FORECASTERS", "FIT_BACKENDS", "FORECAST_BACKENDS", "DETECTOR_BACKENDS",
-    "SIM_ENGINES",
+    "SIM_ENGINES", "FLEET_BACKENDS",
     # the port's own
     "resolve_device", "FORECASTER_DEFAULTS", "ScalarDetectorSet",
     "BankedDetectorSet", "restart_inits", "bucket_pow2",

@@ -24,6 +24,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs
 from .acquisition import ehvi_2d, hypervolume_2d, select_profiling_batch
 from .config_space import ConfigSpace
 from .executor import EngineConfig, coerce_config, resolve_device
@@ -340,8 +341,9 @@ class DemeterController:
 
     def predicted_rate(self) -> float:
         t0 = time.perf_counter()
-        out = binned_forecast(self.tsf, self.hp.forecast_horizon,
-                              self.hp.forecast_bins)
+        with obs.span("demeter.predicted_rate"):
+            out = binned_forecast(self.tsf, self.hp.forecast_horizon,
+                                  self.hp.forecast_bins)
         self.tsf_wall_s += time.perf_counter() - t0
         return out
 
@@ -389,7 +391,9 @@ class DemeterController:
         if q < 1:
             return []
 
-        picked_cfgs = self._select_profiles(segment, rate, q)
+        with obs.timed_phase("acquire", "demeter.acquire",
+                             q=q, segment=segment.index):
+            picked_cfgs = self._select_profiles(segment, rate, q)
         if not picked_cfgs:
             return []
 

@@ -27,8 +27,8 @@ from typing import (TYPE_CHECKING, Dict, List, Mapping, Optional, Protocol,
 import numpy as np
 import torch
 
-from .registry import (DETECTOR_BACKENDS, FIT_BACKENDS, FORECAST_BACKENDS,
-                       SIM_ENGINES)
+from .registry import (DETECTOR_BACKENDS, FIT_BACKENDS, FLEET_BACKENDS,
+                       FORECAST_BACKENDS, SIM_ENGINES)
 
 if TYPE_CHECKING:                                    # avoid an import cycle:
     from .demeter import DemeterHyperParams          # demeter imports us
@@ -233,6 +233,7 @@ def _ensure_registered() -> None:
     and backends, so validation works whichever module was imported first."""
     from . import anomaly, demeter, forecast, forecast_bank  # noqa: F401
     from ..dsp import executor, fused, policies  # noqa: F401
+    from ..fleet import api  # noqa: F401
 
 
 def resolve_device(name: str) -> torch.device:
@@ -272,6 +273,10 @@ class EngineConfig:
     hp: Optional["DemeterHyperParams"] = None
     #: Baseline-controller decision cadence (seconds).
     decision_interval_s: float = 60.0
+    #: Fleet-controller job backend: "sim" (sim jobs) or "serving" (the
+    #: serving executor). Only :class:`repro_torch.fleet.FleetController`
+    #: reads it.
+    fleet_backend: str = "sim"
     #: Where the fused engine, the forecast bank, the GP bank and the
     #: acquisition keep their tensors and launch their kernels. The batched
     #: engine and the scalar oracles run on the host whatever this says.
@@ -283,6 +288,7 @@ class EngineConfig:
         FIT_BACKENDS.validate(self.fit_backend)
         FORECAST_BACKENDS.validate(self.forecast_backend)
         DETECTOR_BACKENDS.validate(self.detector_backend)
+        FLEET_BACKENDS.validate(self.fleet_backend)
         if not self.decision_interval_s > 0:
             raise ValueError(f"decision_interval_s must be positive, got "
                              f"{self.decision_interval_s!r}")

@@ -41,7 +41,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..kernels import ops
+from ..kernels import rls_update as _k1
 from .anomaly import DETECTOR_ERR_WINDOW
 from .executor import resolve_device
 from .forecast import (ERR_WINDOW, FORECASTER_DEFAULTS, FORECASTER_KINDS,
@@ -279,6 +281,13 @@ def _snaive_roll(state: _SNaiveState, params: _SNaiveParams,
 
 #: Per-stream staging queue depth; a full queue forces an early flush.
 _QUEUE_CAP = 128
+
+
+def _track_k1(site: str) -> None:
+    """Record K1's library load and launch count for obs call ``site``
+    (the counterpart of the reference's jit-cache tracking)."""
+    obs.track_kernel_loads(site, obs.kernel_libs_loaded(("rls_update",)))
+    obs.track_launches(_k1.arima_chunk)
 
 
 class _FamilyBank:
@@ -602,6 +611,12 @@ class ForecastBank:
         self.rollout_wall_s = 0.0
         self.n_updates = 0
 
+    @classmethod
+    def from_kinds(cls, kinds: Sequence[str], *,
+                   params: Optional[Sequence[dict]] = None,
+                   horizon: int = 10, device: str = "cuda") -> "ForecastBank":
+        return cls(kinds, params=params, horizon=horizon, device=device)
+
     @property
     def n_streams(self) -> int:
         return len(self._rows)
@@ -640,11 +655,17 @@ class ForecastBank:
             return 0
         t0 = time.perf_counter()
         n = 0
-        for kind, fam in self._fams.items():
-            if fam.has_staged:
-                n += fam.flush()
-                self._drop_family_cache(kind)
+        with obs.timed_phase("forecast", "forecast.flush",
+                             streams=self.n_streams):
+            for kind, fam in self._fams.items():
+                if fam.has_staged:
+                    n += fam.flush()
+                    self._drop_family_cache(kind)
         self.update_wall_s += time.perf_counter() - t0
+        if obs.enabled():
+            obs.inc("sweep.forecast_flushes")
+            obs.inc("sweep.forecast_updates", n)
+            _track_k1("forecast_bank")
         self.n_updates += n
         return n
 
@@ -656,10 +677,12 @@ class ForecastBank:
             fam, i = self._rows[row]
             by_fam.setdefault(fam, []).append(i)
         n = 0
-        for fam, members in by_fam.items():
-            self._fams[fam].reset_rows(members)
-            self._drop_family_cache(fam)
-            n += len(members)
+        with obs.timed_phase("forecast", "forecast.reset_rows",
+                             streams=sum(map(len, by_fam.values()))):
+            for fam, members in by_fam.items():
+                self._fams[fam].reset_rows(members)
+                self._drop_family_cache(fam)
+                n += len(members)
         return n
 
     # -- reads ---------------------------------------------------------------
@@ -674,8 +697,13 @@ class ForecastBank:
         f = self._fams[fam]
         if f.has_staged:
             t0 = time.perf_counter()
-            n, out = f.flush_and_roll(self.horizon)
+            with obs.timed_phase("forecast", "forecast.flush_and_roll",
+                                 family=fam):
+                n, out = f.flush_and_roll(self.horizon)
             self.update_wall_s += time.perf_counter() - t0
+            if obs.enabled():
+                obs.inc("sweep.forecast_updates", n)
+                _track_k1("forecast_bank")
             self.n_updates += n
             self._drop_family_cache(fam)
             self._cache[fam] = out
@@ -683,7 +711,8 @@ class ForecastBank:
         cached = self._cache.get(fam)
         if cached is None:
             t0 = time.perf_counter()
-            cached = f.rollout(self.horizon)
+            with obs.timed_phase("forecast", "forecast.rollout", family=fam):
+                cached = f.rollout(self.horizon)
             self.rollout_wall_s += time.perf_counter() - t0
             self._cache[fam] = cached
         return cached
@@ -694,7 +723,9 @@ class ForecastBank:
             return self._cached_rollout(fam)[i, :steps].copy()
         self.flush()
         t0 = time.perf_counter()
-        out = self._fams[fam].rollout(steps)[i]
+        with obs.timed_phase("forecast", "forecast.rollout", family=fam,
+                             steps=steps):
+            out = self._fams[fam].rollout(steps)[i]
         self.rollout_wall_s += time.perf_counter() - t0
         return out
 
@@ -881,14 +912,18 @@ class DetectorBank:
         vals[:self.n] = values if active is None else \
             np.where(np.asarray(active, bool), values, np.nan)
         t0 = time.perf_counter()
-        state, ring, rn, flags = _detector_observe(
-            self._state, self._params, self._const, self._ring, self._rn,
-            torch.as_tensor(vals, device=self.device), self._k_sigma,
-            self._warm)
-        self._state.err.copy_(state.err)
-        self._state.err_n.copy_(state.err_n)
-        self._ring, self._rn = ring, rn
+        with obs.timed_phase("detect", "detector.observe", streams=self.n):
+            state, ring, rn, flags = _detector_observe(
+                self._state, self._params, self._const, self._ring, self._rn,
+                torch.as_tensor(vals, device=self.device), self._k_sigma,
+                self._warm)
+            self._state.err.copy_(state.err)
+            self._state.err_n.copy_(state.err_n)
+            self._ring, self._rn = ring, rn
         out = flags.cpu().numpy()[:self.n]
         self.wall_s += time.perf_counter() - t0
         self.n_samples += 1
+        if obs.enabled():
+            obs.inc("sweep.detector_samples")
+            _track_k1("detector")
         return out

@@ -29,6 +29,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .executor import resolve_device
 from .gp import (GP, _cholesky, _kernel_matrix, _matern52, _neg_mll,
                  _unpack, fallback_theta, neg_mll_and_grad, restart_inits)
@@ -277,8 +278,13 @@ class GPBank:
             t0s[i] = restart_inits(dim, restarts, seeds[i])
 
         pack = lambda a: torch.as_tensor(a, dtype=_F32, device=dev)  # noqa
-        theta, _val, chol, alpha = _fit_packed(
-            pack(xs), pack(ys), pack(mask), pack(t0s), max_iter=max_iter)
+        with obs.timed_phase("fit", "gp_bank.fit",
+                             members=b, b=b, n_max=n_max):
+            packed = [pack(a) for a in (xs, ys, mask, t0s)]
+            theta, _val, chol, alpha = _fit_packed(*packed, max_iter=max_iter)
+        if obs.enabled():
+            obs.inc("sweep.gp_fits", b)
+            obs.inc("transfer.h2d_bytes", sum(t.nbytes for t in packed))
         return GPBank(x=xs, mask=mask, theta=theta.cpu().numpy(),
                       chol=chol.cpu().numpy(), alpha=alpha.cpu().numpy(),
                       y_mean=y_mean, y_std=y_std, device=str(dev))
@@ -297,9 +303,11 @@ class GPBank:
         dev = resolve_device(self.device)
         xq = np.asarray(xq, np.float64).reshape(-1, self.x.shape[-1])
         pack = lambda a: torch.as_tensor(a, dtype=_F32, device=dev)  # noqa
-        mean_s, var_s = _posterior_packed(
-            pack(self.x), pack(self.mask), pack(self.theta), pack(self.chol),
-            pack(self.alpha), pack(xq)[None])
+        with obs.span("gp_bank.posterior", members=self.n_members,
+                      m=xq.shape[0]):
+            mean_s, var_s = _posterior_packed(
+                pack(self.x), pack(self.mask), pack(self.theta),
+                pack(self.chol), pack(self.alpha), pack(xq)[None])
         mean = mean_s.cpu().numpy() * self.y_std[:, None] \
             + self.y_mean[:, None]
         var = var_s.cpu().numpy() * (self.y_std ** 2)[:, None]
@@ -354,8 +362,11 @@ def batched_posterior(gps: Sequence[GP], xq: np.ndarray,
         chol[i, n:, :n] = 0.0
         alpha[i, :n] = g.alpha
     pack = lambda a: torch.as_tensor(a, dtype=_F32, device=dev)  # noqa: E731
-    mean_s, var_s = _posterior_packed(pack(xs), pack(mask), pack(theta),
-                                      pack(chol), pack(alpha), pack(xq)[None])
+    with obs.span("gp_bank.batched_posterior", members=len(gps),
+                  m=xq.shape[0]):
+        mean_s, var_s = _posterior_packed(
+            pack(xs), pack(mask), pack(theta), pack(chol), pack(alpha),
+            pack(xq)[None])
     y_std = np.asarray([g.y_std for g in gps])
     y_mean = np.asarray([g.y_mean for g in gps])
     mean = mean_s.cpu().numpy() * y_std[:, None] + y_mean[:, None]

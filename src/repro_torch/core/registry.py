@@ -18,6 +18,7 @@ registry                  entry                     defined in
 :data:`DETECTOR_BACKENDS` detector family class     ``repro_torch.core.anomaly``
 :data:`SIM_ENGINES`       sweep executor class      ``repro_torch.dsp.executor``,
                                                     ``repro_torch.dsp.fused``
+:data:`FLEET_BACKENDS`    fleet job-backend factory ``repro_torch.fleet.api``
 ========================  ========================  ==========================
 """
 from __future__ import annotations
@@ -116,3 +117,7 @@ DETECTOR_BACKENDS: Registry = Registry("detector backend")
 #: :class:`repro_torch.dsp.executor.SweepExecutorBase`; an engine with
 #: ``supports_intervals = True`` is driven a decision interval at a time.
 SIM_ENGINES: Registry = Registry("engine")
+
+#: Fleet-controller job backends ("sim" / "serving" + plugins). Entries build
+#: one job: ``factory(*, seed=..., **params) -> (executor, config_space)``.
+FLEET_BACKENDS: Registry = Registry("fleet backend")

@@ -33,6 +33,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
+from .. import obs
 from ..core.anomaly import RecoveryTracker
 from ..core.executor import ProfileSpec, resolve_device
 from ..core.registry import SIM_ENGINES
@@ -250,7 +251,10 @@ class SweepExecutorBase:
     # -- simulation stepping (driven by the sweep engine) -------------------
     def step(self, rates: np.ndarray) -> Dict[str, np.ndarray]:
         """Advance every scenario one step; record telemetry history."""
-        m = self._step_impl(np.asarray(rates, float), self.dt)
+        with obs.timed_phase("simulate", "engine.step"):
+            m = self._step_impl(np.asarray(rates, float), self.dt)
+        obs.inc("sweep.ticks")
+        obs.inc("sweep.scenario_ticks", len(self.seeds))
         self.step_index += 1
         for k in HIST_KEYS:
             self.hist[k][:, self.step_index] = m[k]
@@ -298,6 +302,7 @@ class SweepExecutorBase:
         applied = self._reconfigure_impl(idx, cfg, restart_s)
         if applied:
             self.reconf_count[idx] += 1
+            obs.inc("sweep.reconfigurations")
         return applied
 
     def observe(self) -> Dict[str, np.ndarray]:
@@ -326,16 +331,18 @@ class SweepExecutorBase:
         of the scalar protocol (``seed*1009 + k + int(rate)``)."""
         counters: Dict[int, int] = {}
         out: List[Optional[Dict[str, float]]] = []
-        for idx, cfg, rate in specs:
-            k = counters.get(idx, 0)
-            counters[idx] = k + 1
-            cost = self.profile_costs[idx]
-            out.append(profile_one(
-                self.model, self.cmax, JobConfig.from_dict(cfg), rate,
-                self.dt, seed=self.seeds[idx] * 1009 + k + int(rate),
-                account=lambda m, _c=cost: _c.add(m, self.dt),
-                detector_backend=self.detector_backend,
-                device=str(self.device)))
+        obs.inc("sweep.profile_runs", len(specs))
+        with obs.span("engine.profile", runs=len(specs)):
+            for idx, cfg, rate in specs:
+                k = counters.get(idx, 0)
+                counters[idx] = k + 1
+                cost = self.profile_costs[idx]
+                out.append(profile_one(
+                    self.model, self.cmax, JobConfig.from_dict(cfg), rate,
+                    self.dt, seed=self.seeds[idx] * 1009 + k + int(rate),
+                    account=lambda m, _c=cost: _c.add(m, self.dt),
+                    detector_backend=self.detector_backend,
+                    device=str(self.device)))
         return out
 
     def allocated_cost(self, idx: int, config: Mapping[str, float]) -> float:

@@ -30,7 +30,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.registry import SIM_ENGINES
+from ..kernels import fused_tick as _k2
 from ..kernels import ops
 from ..kernels.ref import METRIC_KEYS
 from .executor import SweepExecutorBase
@@ -129,10 +131,12 @@ class FusedSweepExecutor(SweepExecutorBase):
         every reconfiguration (configs change per decision, not per tick)."""
         if self._dev_cfg is None:
             st = self.state
-            self._dev_cfg = tuple(
-                self._to_device(a) for a in (st.workers, st.cpu_cores,
-                                             st.memory_mb, st.task_slots,
-                                             self._cap_base))
+            arrays = (st.workers, st.cpu_cores, st.memory_mb, st.task_slots,
+                      self._cap_base)
+            self._dev_cfg = tuple(self._to_device(a) for a in arrays)
+            if obs.enabled():
+                obs.inc("sweep.device_config_rebuilds")
+                obs.inc("transfer.h2d_bytes", sum(a.nbytes for a in arrays))
         return self._dev_cfg
 
     def device_state(self) -> Dict[str, torch.Tensor]:
@@ -207,15 +211,28 @@ class FusedSweepExecutor(SweepExecutorBase):
                 for j in np.nonzero(inject_ks[k])[0]:
                     self._stage_failure(int(j), stage)
 
-        planes = [self._to_device(a)
-                  for a in (rates_ks, lag_add, dpre, dpost, z1, z2)]
-        ms = fused_interval_scan(
-            self.model, self._lag, self._det_w, self._det_p, self._det_y,
-            self._det_trig, *planes, *self._device_configs(), DET_LAMBDA,
-            DET_THRESH, dt)
+        with obs.timed_phase("simulate", "engine.fused.interval",
+                             K=K, Kp=K, scenarios=S):
+            planes = [self._to_device(a) for a in (rates_ks, lag_add, dpre,
+                                                   dpost, z1, z2)]
+            ms = fused_interval_scan(
+                self.model, self._lag, self._det_w, self._det_p, self._det_y,
+                self._det_trig, *planes, *self._device_configs(), DET_LAMBDA,
+                DET_THRESH, dt)
         self.intervals_stepped += 1
         st.from_device(self._lag)
         out = dict(zip(METRIC_KEYS, ms.cpu().numpy()))
+        if obs.enabled():
+            obs.inc("sweep.intervals")
+            obs.inc("sweep.ticks", K)
+            obs.inc("sweep.scenario_ticks", K * S)
+            obs.inc("transfer.h2d_bytes",
+                    rates_ks.nbytes + lag_add.nbytes + dpre.nbytes
+                    + dpost.nbytes + z1.nbytes + z2.nbytes)
+            obs.inc("transfer.d2h_bytes", ms.nbytes + st.lag_events.nbytes)
+            obs.track_kernel_loads("fused_scan",
+                                   obs.kernel_libs_loaded(("fused_tick",)))
+            obs.track_launches(_k2.fused_interval)
 
         i0 = self.step_index + 1
         for key in self.hist:

@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import obs
 from ..core.demeter import DemeterHyperParams, ModelBank
 from ..core.executor import EngineConfig, coerce_config, warn_legacy_kwarg
 from ..core.forecast import FORECASTER_KINDS
@@ -424,6 +425,8 @@ class SweepEngine:
             if not pol_due.any():
                 return
             due = np.nonzero(pol_due)[0]
+            if obs.enabled():
+                obs.inc("sweep.policy_triggers", len(due))
             # Two-phase telemetry ingestion for policies that opt in
             # (``pending_ingest`` + ``ingest``): every due observation lands
             # in the shared ForecastBank, which replays all queued ticks of
@@ -445,8 +448,9 @@ class SweepEngine:
                 n_fit, fit_wall = ModelBank.batch_refresh(banks)
                 model_update_wall += fit_wall
                 n_model_fits += n_fit
-            for j in due:
-                policy_next[j] = policies[j].act(self, j, t, i)
+            with obs.span("sweep.policy_block", t=float(t), due=len(due)):
+                for j in due:
+                    policy_next[j] = policies[j].act(self, j, t, i)
 
         def drive_ticks() -> None:
             """Classic driver: one executor dispatch per simulator tick."""
@@ -540,10 +544,12 @@ class SweepEngine:
 
         load_wall0 = dict(_build.load_wall_s)
         t0 = time.perf_counter()
-        if getattr(ex, "supports_intervals", False):
-            drive_intervals()
-        else:
-            drive_ticks()
+        with obs.span("sweep.run", engine=config.sim_backend, scenarios=S,
+                      steps=int(self.n_steps)):
+            if getattr(ex, "supports_intervals", False):
+                drive_intervals()
+            else:
+                drive_ticks()
         wall = time.perf_counter() - t0
         # Fold in lazy fits (segments first hit mid-act, cold starts).
         for p in policies:

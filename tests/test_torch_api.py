@@ -56,9 +56,9 @@ from repro_torch.dsp import (BatchedSweepExecutor, ClusterModel,  # noqa: E402
 # API snapshot
 # ---------------------------------------------------------------------------
 
-#: names of the reference's API whose slices are not ported yet: the fleet
-#: service's registry and the multi-device sharded engine
-UNPORTED = {"core": {"FLEET_BACKENDS"}, "dsp": {"ShardedSweepExecutor"}}
+#: names of the reference's API whose slices are not ported yet: the
+#: multi-device sharded engine
+UNPORTED = {"core": set(), "dsp": {"ShardedSweepExecutor"}}
 #: the port's own exports, beyond the reference's
 PORT_ONLY = {
     "core": {"resolve_device", "FORECASTER_DEFAULTS", "ScalarDetectorSet",
@@ -69,9 +69,8 @@ PORT_ONLY = {
             "OPT_INTERVAL_S"},
 }
 #: EngineConfig fields: the reference's (``devices`` belongs to the sharded
-#: engine, ``fleet_backend`` to the fleet service) and the port's own
-#: (where tensors live)
-UNPORTED_FIELDS = ("devices", "fleet_backend")
+#: engine) and the port's own (where tensors live)
+UNPORTED_FIELDS = ("devices",)
 PORT_FIELDS = ("device",)
 
 

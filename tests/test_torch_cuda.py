@@ -9,7 +9,8 @@ has no JAX, run them with
 They hold the fused-tick, fused-interval, RLS, ARIMA-chunk,
 decode-attention, SSD-scan, flash-attention, grouped-matmul and
 fused-RMSNorm kernels against their plain versions, and the fused engine, a short Demeter sweep, the
-detector bank, one short ``run_experiment``, small serving
+detector bank, one short ``run_experiment``, an 8-job fleet soak (and the
+obs counters against the kernels' launch counters), small serving
 runs (dense, mamba2, zamba2, deepseek-moe, deepseek-v2-lite), hubert's
 ``encode`` and pixtral's ``train_loss`` on the card against the same runs
 on the CPU.
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.sharded_diff import VOLATILE
 from repro_torch.configs import smoke_config
 from repro_torch.core import EngineConfig
 from repro_torch.core.demeter import DemeterHyperParams
@@ -466,6 +468,70 @@ def test_run_experiment_on_card_matches_cpu(cuda):
     assert [f.recovery_s for f in card.failures] == \
         [f.recovery_s for f in cpu.failures]
     assert card.profile_cpu_s > 0
+
+
+@pytest.mark.cuda
+def test_fleet_soak_on_card_matches_cpu(cuda):
+    """An 8-job fleet on the card gives the CPU's digest and stats; K1
+    runs once per forecast-bank flush and once per detector sample."""
+    from repro_torch import obs
+    from repro_torch.fleet import SoakConfig, run_soak
+    cfg = SoakConfig(n_jobs=8, epochs=8, seed=1)
+    rls_mod.arima_chunk.launches = 0
+    obs.enable(clear=True)
+    obs.reset()
+    try:
+        card = run_soak(cfg, EngineConfig())
+    finally:
+        obs.disable()
+    launches = rls_mod.arima_chunk.launches
+    snap = obs.snapshot()
+    obs.reset()
+    cpu = run_soak(cfg, EngineConfig(device="cpu"))
+    assert card["decision_digest"] == cpu["decision_digest"]
+    assert card["stats"] == cpu["stats"] and card["decisions"] > 0
+    c = snap["counters"]
+    assert launches == c["sweep.forecast_flushes"] \
+        + c["sweep.detector_samples"] > 0
+    assert c["sweep.detector_samples"] == cfg.epochs
+    assert snap["gauges"]["launches.arima_chunk"] == launches
+    assert snap["gauges"]["kernel_libs.detector"] == 1
+
+
+@pytest.mark.cuda
+def test_obs_counters_on_card_equal_launch_counters(cuda):
+    """With obs on, a Demeter sweep on the card counts one interval per
+    K2 launch, and the launch gauges hold the kernels' own counters."""
+    from repro_torch import obs
+    specs = [ScenarioSpec(trace=make_trace("diurnal", duration_s=3600.0),
+                          controller="demeter", seed=0,
+                          failures=PeriodicFailures(1200.0))]
+    config = EngineConfig(fit_backend="scalar",
+                          hp=DemeterHyperParams(profile_interval_s=600))
+    runs = {}
+    for on in (False, True):
+        kmod.fused_interval.launches = rls_mod.arima_chunk.launches = 0
+        eng = SweepEngine(specs, config=config)
+        if on:
+            obs.enable(clear=True)
+            obs.reset()
+        try:
+            runs[on] = eng.run()
+        finally:
+            obs.disable()
+    snap = obs.snapshot()
+    obs.reset()
+    c, g = snap["counters"], snap["gauges"]
+    assert c["sweep.intervals"] == kmod.fused_interval.launches \
+        == eng.executor.intervals_stepped > 0
+    assert g["launches.fused_interval"] == kmod.fused_interval.launches
+    assert g["launches.arima_chunk"] == rls_mod.arima_chunk.launches \
+        == eng.forecast_bank.arima_chunks > 0
+    assert g["kernel_libs.fused_scan"] == 1
+    assert g["kernel_libs.forecast_bank"] == 1
+    assert {k: v for k, v in runs[True].to_json().items()
+            if k not in VOLATILE} == \
+        {k: v for k, v in runs[False].to_json().items() if k not in VOLATILE}
 
 
 def _attention_operands(B, S, Hkv, G, D, dtype, device, seed=0):

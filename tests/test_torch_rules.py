@@ -43,7 +43,10 @@ def _env():
                                     "repro_torch.models.mla",
                                     "repro_torch.configs",
                                     "repro_torch.serving",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.obs",
+                                    "repro_torch.fleet",
+                                    "repro_torch.fleet.loadgen"])
 def test_port_imports_neither_jax_nor_reference(module):
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
@@ -84,8 +87,9 @@ def test_chip_smoke_fails_without_the_card(where, tmp_path):
 
 def test_port_registries_are_its_own():
     from repro_torch.core.registry import (CONTROLLERS, DETECTOR_BACKENDS,
-                                           FIT_BACKENDS, FORECAST_BACKENDS,
-                                           FORECASTERS, SIM_ENGINES)
+                                           FIT_BACKENDS, FLEET_BACKENDS,
+                                           FORECAST_BACKENDS, FORECASTERS,
+                                           SIM_ENGINES)
     from repro_torch.core import EngineConfig
     EngineConfig(device="cpu")           # registers every built-in
     assert SIM_ENGINES.available() == ("batched", "fused", "scalar")
@@ -94,6 +98,7 @@ def test_port_registries_are_its_own():
     assert FIT_BACKENDS.available() == ("bank", "scalar")
     assert FORECAST_BACKENDS.available() == ("bank", "scalar")
     assert DETECTOR_BACKENDS.available() == ("bank", "scalar")
+    assert FLEET_BACKENDS.available() == ("serving", "sim")
     assert "repro.core.registry" not in sys.modules or \
         "torch" not in sys.modules["repro.core.registry"].SIM_ENGINES
 
@@ -127,7 +132,19 @@ def _builders():
                                        max_tokens=2, slots=1)
 
     executor_args = (ClusterModel(), [JobConfig()] * 2, [0, 1])
+    from repro_torch.fleet import (FleetAPI, FleetConfig, FleetController,
+                                   SoakConfig, run_soak)
+    from repro_torch.fleet.api import main as fleet_main
+    from repro_torch.fleet.loadgen import main as loadgen_main
     return {
+        "FleetController": lambda: FleetController(
+            fleet=FleetConfig(capacity=2)),
+        "FleetAPI": lambda: FleetAPI(fleet=FleetConfig(capacity=2)),
+        "run_soak": lambda: run_soak(SoakConfig(n_jobs=2, epochs=1)),
+        "python -m repro_torch.fleet": lambda: fleet_main(
+            ["--capacity", "2"]),
+        "python -m repro_torch.fleet.loadgen": lambda: loadgen_main(
+            ["--jobs", "2", "--epochs", "1"]),
         "ServingEngine": lambda: ServingEngine(
             cfg, init_params(cfg, device="cpu"), n_slots=1, max_len=8),
         "init_params": lambda: init_params(cfg),
@@ -162,7 +179,8 @@ def _builders():
      "run_experiment", "ForecastBank",
      "GPBank.fit", "batched_posterior", "ModelBank", "DemeterController",
      "ServingEngine", "init_params", "calibrate",
-     "launch.serve.run_engine"]))
+     "launch.serve.run_engine", "FleetController", "FleetAPI", "run_soak",
+     "python -m repro_torch.fleet", "python -m repro_torch.fleet.loadgen"]))
 def test_entry_points_default_to_the_card(entry):
     import torch
     if torch.cuda.is_available():
