@@ -44,7 +44,13 @@ Phases, each of which exits non-zero on failure:
    scale in float32 and 2e-2 in bf16, padding tiles zero, the same bits on
    a second call) and ``fused_rmsnorm`` (K7: the reference
    tests' shapes and 16 x 4096 rows of 2048 beside ``F.rms_norm``; 1e-5 in
-   float32, one bf16 ulp of each element in bf16);
+   float32, one bf16 ulp of each element in bf16), and ``gp_lbfgs`` (the
+   GP bank's whole fit, a CTA a row; not a TPU kernel: the reference's fit
+   is plain JAX) at phase 5's 96 members (n_max 64, the factors in shared
+   memory) and at 8 members of 129-256 points (n_max 256, in global
+   scratch) against its plain version, the batched L-BFGS over the
+   autograd objective (iterates after 1 and 2 iterations within 1e-3 of
+   theta's scale, best objectives after 60 within 1e-3 relative);
 4. baseline path: ``SweepEngine``/``run_sweep`` over a baseline-controller
    grid (traces ysb and tsw x static/reactive/ds2 x seeds 0-47 = 288
    scenarios, the paper's 18 h at dt = 5 s, a failure every 45 minutes) on
@@ -55,8 +61,11 @@ Phases, each of which exits non-zero on failure:
    call and the per-tick ``fused_tick`` never;
 5. components on the card: a 288-stream mixed-family ``ForecastBank``
    against the scalar zoo (rtol 1e-9, equal binned-forecast decisions), a
-   96-member ``GPBank.fit`` against the scalar ``GP.fit`` (posterior within
-   5% of scale), and the same profiling batch selected either way; the
+   96-member ``GPBank.fit`` against the scalar ``GP.fit`` (posterior
+   within 5% of scale, except on ``OTHER_OPTIMA``, where scipy reaches a
+   lower optimum than the bank's algorithm and the reference's bank
+   misses the bar too: there the CPU bank's objective), and the same
+   profiling batch selected either way; the
    bank launches K1 (``arima_chunk``) once per ARIMA chunk;
 6. the Demeter main path: ``paper_grid(controllers=("demeter",),
    trace_kinds=("ysb", "tsw"))`` at the paper's 18 h under the default
@@ -64,7 +73,8 @@ Phases, each of which exits non-zero on failure:
    acquisition, all on the card); finite results, a failure in every
    scenario, GP fits made, K1 (``arima_chunk``) launched once per ARIMA
    chunk replayed, K2 (``fused_interval``) once per ``step_interval``
-   call, and the per-tick kernels never;
+   call, ``gp_lbfgs`` once per GP bank fit (and the largest padded
+   training size it fitted), and the per-tick kernels never;
 7. the Demeter path, card against CPU: a 3-scenario, 2 h grid with the
    scalar GP fits, run on ``cuda`` and on ``cpu``; every scenario must agree
    at rtol 1e-9 with equal reconfiguration, fit and forecast-update counts;
@@ -165,7 +175,20 @@ Phases, each of which exits non-zero on failure:
     scalar fits' decisions; ``python -m
     repro_torch.fleet --device cuda`` fed a JSON-lines script with a
     ``"serving"`` job on phase 10's measured profile, answering as an
-    in-process CPU service does.
+    in-process CPU service does;
+28. the training path: deepseek-7b at full width in bfloat16, cut to 2
+    layers, on the plain attention route (the reference trains there: no
+    kernel has a backward), ``ElasticTrainer`` with int8 error-feedback
+    compression and 2 microbatches on batches of 4 x 1 024 tokens: 6 steps
+    with a checkpoint at step 4, a failure, then the restore of step 4,
+    the replay of steps 4-5 (their losses bit for bit the first pass's) and
+    steps 6-7 (a second checkpoint at 8); finite losses, positive grad
+    norms, no launch of any of the port's kernels; the median step, the
+    save (host copy), write and restore walls, the peak device memory, one
+    step's device idle share and the step's bound;
+29. training, card against CPU: the trainer on the smoke config in
+    float32 (TF32 off), 4 steps from the same parameters; losses, grad
+    norms and final parameters within 1e-5.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
@@ -180,7 +203,9 @@ times at 1 024 streams), on ``run_experiment``'s Demeter cells (phase
 forecast shape). ``fused_tick`` and ``rls_update`` keep their
 phase-3 times with the launches the Demeter path counted, and K7, which
 no model of the reference calls, those counted on the deepseek-moe-16b
-run: the script fails unless these three are 0.
+run: the script fails unless these three are 0. Beside the list,
+``training`` holds every kernel's launches over phase 28's first step and
+over the whole phase: all 0, or the script fails.
 
     python3 chip_smoke.py                     # from the root of a checkout
 """
@@ -268,6 +293,15 @@ PROTOCOL_CARD_VS_CPU = (2 * 3600.0, 3)
 #: whole script took 589.4 s and, on a slower host, 822.2 s: inside the
 #: 1200-s limit, though not inside half of it on the slower host.
 DEMETER_SEEDS = 4
+#: Phase 3's second GP-fit row: 8 members of 129-256 points (n_max 256),
+#: where the fit kernel keeps its n x n factors in global scratch
+GP_FIT_LARGE = (8, 5, (129, 257))
+#: Phase 5: the members of ``gp_datasets(96, 12)`` on which the bank's
+#: optimizer (optax's L-BFGS, the reference's) stops at another optimum
+#: than the scalar fit's scipy L-BFGS-B, so that the reference's own bank
+#: misses the 5% bar there (``tests/test_torch_gp.py`` shows it on the
+#: CPU); each is held to the port's bank on the CPU instead
+OTHER_OPTIMA = frozenset({49})
 
 SWEEP_ARRAYS = ("rates", "latencies", "usage_cpu", "usage_mem_mb", "workers",
                 "consumer_lag")
@@ -315,6 +349,21 @@ VLM_BATCH, VLM_SEQ = 2, 4096
 #: end in a partial tile of K4
 ENCODER_CARD_VS_CPU = (2, 2, 300, 0)
 VLM_CARD_VS_CPU = (2, 1, 256, 64)
+#: The training path (phase 28): deepseek-7b at full width in bfloat16, cut
+#: to 2 layers, as the reference's examples/train_elastic.py wires it
+#: (int8 error-feedback compression), with 2 microbatches, batches of
+#: TRAIN_BATCH x TRAIN_SEQ tokens, a checkpoint every TRAIN_CKPT_EVERY steps
+#: and a failure after TRAIN_FAIL_AFTER steps (restore, replay, train on to
+#: TRAIN_UNTIL); phase 29 runs the smoke config card against CPU
+TRAIN_ARCH = "deepseek_7b"
+TRAIN_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AFTER, TRAIN_UNTIL = 4, 6, 8
+TRAIN_CKPT = REPO / "build" / "train_ckpt"
+TRAIN_CARD_VS_CPU = (4, 32, 4)       # batch, sequence, steps
+#: card against CPU: losses, grad norms and final parameters (of each
+#: tensor's scale), float32 with TF32 off
+TRAIN_CARD_VS_CPU_BAR = 1e-5
 #: K4's checks (B, Sq, Hq, Hkv, D, causal): the reference tests' shapes
 #: (tests/test_kernels.py::TestFlashAttention) in float32, both causal
 #: settings; gemma's head dim of 256 and a ragged length of 300 in both
@@ -1412,13 +1461,14 @@ def check_forecast_bank(device: str) -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
-def gp_datasets(n_sets: int, seed: int):
-    """Seeded controller-shaped datasets: d = 5, 3 to 60 points each."""
+def gp_datasets(n_sets: int, seed: int, sizes=(3, 61)):
+    """Seeded controller-shaped datasets: d = 5, ``sizes`` (a half-open
+    range: 3 to 60 points by default) points each."""
     import numpy as np
     rng = np.random.default_rng(seed)
     datasets = []
     for i in range(n_sets):
-        n = int(rng.integers(3, 61))
+        n = int(rng.integers(*sizes))
         x = rng.uniform(0, 1, (n, 5))
         y = (1.0 + 0.3 * (i % 7)) * (1.2 - x[:, 0]) + 0.4 * x[:, 1] ** 2 \
             + rng.normal(0, 0.05, n)
@@ -1426,13 +1476,140 @@ def gp_datasets(n_sets: int, seed: int):
     return datasets, [i * 131 for i in range(n_sets)]
 
 
+class count_fit_calls:
+    """Counts the GP bank's batched fits (``gp_bank._fit_packed`` calls),
+    and the largest padded training size among them, until
+    ``restore()``."""
+
+    def __init__(self, gp_bank):
+        self.mod, self.fn, self.n = gp_bank, gp_bank._fit_packed, 0
+        self.n_max = 0
+
+        def counted(x, *a, **k):
+            self.n += 1
+            self.n_max = max(self.n_max, x.shape[1])
+            return self.fn(x, *a, **k)
+        gp_bank._fit_packed = counted
+
+    def restore(self):
+        self.mod._fit_packed = self.fn
+
+
+def fit_operands(datasets, seeds, device):
+    """``GPBank.fit``'s packed float32 operands of ``datasets``: x, y, mask
+    (B, n_max, ...) and the restarts' starts (B, R, d + 2)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.demeter import FIT_RESTARTS
+    from repro_torch.core.gp import restart_inits
+    from repro_torch.core.gp_bank import bucket_pow2
+    b, dim = len(datasets), datasets[0][0].shape[1]
+    n_max = bucket_pow2(max(len(y) for _, y in datasets))
+    xs, ys = np.zeros((b, n_max, dim)), np.zeros((b, n_max))
+    mask = np.zeros((b, n_max))
+    t0s = np.zeros((b, FIT_RESTARTS, dim + 2))
+    for i, (x, y) in enumerate(datasets):
+        n = len(y)
+        xs[i, :n], ys[i, :n] = x, (y - y.mean()) / (y.std() or 1.0)
+        mask[i, :n] = 1.0
+        t0s[i] = restart_inits(dim, FIT_RESTARTS, seeds[i])
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in (xs, ys, mask, t0s)]
+
+
+#: the GP fit's float32 operations per objective evaluation at n points:
+#: the factor and its inverse (n^3 / 6 each), K^-1 (n^3 / 3), the kernel
+#: matrix and the gradient's traces (~40 n^2 at d = 5)
+def gp_eval_ops(n: int) -> float:
+    return 2 * (n ** 3 / 6 + n ** 3 / 6 + n ** 3 / 3) + 40 * n * n
+
+
+def check_gp_fit(n_sets: int = 96, seed: int = 12, sizes=(3, 61),
+                 timed: bool = True, device: str = "cuda") -> dict:
+    """The GP bank's fit kernel against its plain version on the card, on
+    ``gp_datasets(n_sets, seed, sizes)`` (by default phase 5's datasets:
+    96 members, 2 restarts, n up to 60): the iterates after 1 and 2
+    iterations within 1e-3 of theta's scale (the first steps, a zoom
+    search among them, before float32 rounding parts the paths), and after
+    the full 60 iterations each member's best objective within 1e-3
+    relative (the optimum the algorithm reaches). ``max_abs_err`` is the
+    early iterates' largest absolute difference in theta. Timed (with
+    ``timed``): one launch against the plain version's whole loop."""
+    import numpy as np
+    import torch
+    from repro_torch.core.demeter import FIT_MAX_ITER
+    from repro_torch.core.gp import neg_mll_and_grad
+    from repro_torch.kernels.gp_fit import gp_lbfgs
+    from repro_torch.kernels.ref import gp_lbfgs_ref
+    datasets, seeds = gp_datasets(n_sets, seed, sizes)
+    x, y, mask, t0s = fit_operands(datasets, seeds, device)
+    B, R, D = t0s.shape
+    xr, yr, mr = (t.repeat_interleave(R, dim=0) for t in (x, y, mask))
+    t0 = t0s.reshape(B * R, D)
+    worst_early = worst_abs = 0.0
+    for it in (1, 2):
+        got = gp_lbfgs(x, y, mask, t0, restarts=R, max_iter=it)[0]
+        want = gp_lbfgs_ref(x, y, mask, t0, R, it)[0]
+        both_nan = torch.isnan(got) & torch.isnan(want)
+        diff = torch.where(both_nan, 0.0, (got - want).abs())
+        err = float(diff.max() / want.nan_to_num().abs().max())
+        if not err < 1e-3:
+            fail(f"gp_lbfgs (n_max {x.shape[1]}): theta after {it} "
+                 f"iterations parts from the plain version by {err} of "
+                 f"scale")
+        worst_early = max(worst_early, err)
+        worst_abs = max(worst_abs, float(diff.max()))
+    sync(device)
+    t_plain = time.perf_counter()
+    want = gp_lbfgs_ref(x, y, mask, t0, R, FIT_MAX_ITER)[0]
+    sync(device)
+    plain_ms = (time.perf_counter() - t_plain) * 1e3
+    theta, counts, evals = gp_lbfgs(x, y, mask, t0, restarts=R,
+                                    max_iter=FIT_MAX_ITER)
+    ms = (device_ms(lambda: gp_lbfgs(x, y, mask, t0, restarts=R,
+                                     max_iter=FIT_MAX_ITER), n=5, warmup=1,
+                    host_n=5) if timed and device == "cuda" else None)
+    f_k = neg_mll_and_grad(theta, xr, yr, mr)[0].reshape(B, R)
+    f_p = neg_mll_and_grad(want, xr, yr, mr)[0].reshape(B, R)
+    inf = torch.tensor(float("inf"), device=device)
+    best_k = torch.where(torch.isfinite(f_k), f_k, inf).min(1).values
+    best_p = torch.where(torch.isfinite(f_p), f_p, inf).min(1).values
+    rel = ((best_k - best_p).abs() / best_p.abs().clamp_min(1.0)).max()
+    rel = float(rel)
+    if not rel < 1e-3:
+        fail(f"gp_lbfgs (n_max {x.shape[1]}): best objectives part from "
+             f"the plain version's by {rel} (relative)")
+    n_real = mask.sum(1).repeat_interleave(R).cpu().numpy()
+    ops = float(np.sum(evals.cpu().numpy() * np.vectorize(gp_eval_ops)(
+        n_real)))
+    n_bytes = sum(t.numel() * 4 for t in (x, y, mask, t0, theta)) \
+        + 8 * B * R
+    out = {"members": B, "restarts": R, "n_max": x.shape[1],
+           "iterations": int(counts.max()), "evals_per_row": float(
+               evals.float().mean()), "max_abs_err": worst_abs,
+           "early_iterate_rel_err": worst_early, "objective_rel_err": rel,
+           "ms": ms, "plain_ms": plain_ms,
+           **bound(n_bytes, ops, FP32_OPS_PER_S), "library_ms": None}
+    return out
+
+
 def check_gp_bank(device: str, n_sets: int = 96) -> dict:
     """``GPBank.fit`` on ``device`` against the scalar ``GP.fit`` on the
-    host: posterior within 5% of scale (the reference's bar)."""
+    host: every member's posterior within 5% of scale (the reference's
+    bar), except the members of ``OTHER_OPTIMA``. There the bank's
+    optimizer (the reference's: optax's L-BFGS with the zoom line search)
+    and the scalar fit's (scipy's L-BFGS-B) stop at different optima from
+    the same starts: on member 49 the reference's bank and the port's both
+    stop at 4.032 where scipy reaches 3.536. Such a member passes if the
+    bank's objective is above the scalar fit's and equals, within 1e-3,
+    the port's bank on the CPU (which the CPU tests hold to the
+    reference's bank): the card finds the optimum the reference's
+    algorithm finds. Any other member off the 5% bar fails."""
     import numpy as np
     import torch
     from repro_torch.core import GP, GPBank
     from repro_torch.core.demeter import FIT_MAX_ITER, FIT_RESTARTS
+    from repro_torch.core.gp import _neg_mll
     datasets, seeds = gp_datasets(n_sets, seed=12)
     t0 = time.perf_counter()
     bank = GPBank.fit(datasets, restarts=FIT_RESTARTS, max_iter=FIT_MAX_ITER,
@@ -1446,19 +1623,43 @@ def check_gp_bank(device: str, n_sets: int = 96) -> dict:
     scalar_wall = time.perf_counter() - t0
     xq = np.random.default_rng(0).uniform(0, 1, (128, 5))
     mu_b, var_b = bank.posterior(xq)
+
+    def objective(theta, x, y):
+        f32 = lambda a: torch.as_tensor(np.asarray(a),  # noqa: E731
+                                        dtype=torch.float32)[None]
+        ys = (y - y.mean()) / (y.std() or 1.0)
+        return float(_neg_mll(f32(theta), f32(x), f32(ys),
+                              torch.ones(1, len(y)))[0])
     worst_mu = worst_var = 0.0
-    for i, ((_, y), gp) in enumerate(zip(datasets, scalars)):
+    other_optima = {}
+    for i, ((x, y), gp) in enumerate(zip(datasets, scalars)):
         mu, var = gp.posterior(xq)
         scale = np.std(y) or 1.0
         dm = float(np.max(np.abs(mu - mu_b[i])) / scale)
         dv = float(np.max(np.abs(var - var_b[i])) / scale ** 2)
-        if not (dm < 0.05 and dv < 0.05):
+        if dm < 0.05 and dv < 0.05:
+            worst_mu, worst_var = max(worst_mu, dm), max(worst_var, dv)
+            continue
+        if i not in OTHER_OPTIMA:
             fail(f"GPBank member {i} (n={len(y)}): posterior drifted from "
                  f"the scalar fit (mean {dm}, variance {dv} of scale)")
-        worst_mu, worst_var = max(worst_mu, dm), max(worst_var, dv)
+        f_bank, f_scalar = (objective(t, x, y)
+                            for t in (bank.theta[i], gp.theta))
+        f_cpu = objective(GPBank.fit(
+            [(x, y)], restarts=FIT_RESTARTS, max_iter=FIT_MAX_ITER,
+            seeds=[seeds[i]], device="cpu").theta[0], x, y)
+        if not (f_bank > f_scalar and abs(f_bank - f_cpu)
+                <= 1e-3 * abs(f_cpu)):
+            fail(f"GPBank member {i} (n={len(y)}): posterior drifted from "
+                 f"the scalar fit (mean {dm}, variance {dv} of scale; "
+                 f"objective {f_bank} on {device}, {f_cpu} on the CPU bank, "
+                 f"{f_scalar} scalar)")
+        other_optima[i] = {"n": len(y), "mean_diff": dm, "var_diff": dv,
+                           "objective": f_bank, "cpu_bank_objective": f_cpu,
+                           "scalar_objective": f_scalar}
     return {"members": n_sets, "bank_fit_wall_s": bank_wall,
             "scalar_fit_wall_s": scalar_wall, "max_mean_diff": worst_mu,
-            "max_var_diff": worst_var}
+            "max_var_diff": worst_var, "other_optima": other_optima}
 
 
 def check_selection(device: str) -> list:
@@ -1549,26 +1750,32 @@ def demeter_main_path(n_seeds: int, device: str = "cuda") -> dict:
     from repro_torch.core.demeter import DemeterController
     from repro_torch.dsp import FusedSweepExecutor, SweepEngine
     from repro_torch.dsp.executor import SweepExecutorBase
+    from repro_torch.core import gp_bank
     from repro_torch.kernels import fused_tick as k2
+    from repro_torch.kernels import gp_fit as kgp
     from repro_torch.kernels import rls_update as k1
     specs = demeter_specs(n_seeds)
     S = len(specs)
     eng = SweepEngine(specs, config=EngineConfig(device=device))
     timers = LayerTimers()
+    fit_calls = count_fit_calls(gp_bank)
     timers.wrap(FusedSweepExecutor, "step_interval", "fused engine")
     timers.wrap(SweepExecutorBase, "profile", "profiling clones")
     timers.wrap(DemeterController, "_pick_config", "pick config")
     timers.wrap(DemeterController, "_select_profiles", "select profiles")
     k1.arima_chunk.launches = k1.rls_rank1_update.launches = 0
     k2.fused_interval.launches = k2.fused_tick.launches = 0
+    kgp.gp_lbfgs.launches = 0
     try:
         res = eng.run()
         if device == "cuda":
             torch.cuda.synchronize()
     finally:
         timers.restore()
+        fit_calls.restore()
     launches = {"arima_chunk": k1.arima_chunk.launches,
                 "fused_interval": k2.fused_interval.launches,
+                "gp_lbfgs": kgp.gp_lbfgs.launches,
                 "rls_update": k1.rls_rank1_update.launches,
                 "fused_tick": k2.fused_tick.launches}
     check_result(res, S, eng.n_steps)
@@ -1583,6 +1790,9 @@ def demeter_main_path(n_seeds: int, device: str = "cuda") -> dict:
         if not launches["fused_interval"] == intervals > 0:
             fail(f"fused_interval launched {launches['fused_interval']} "
                  f"times for {intervals} step_interval calls")
+        if not launches["gp_lbfgs"] == fit_calls.n > 0:
+            fail(f"gp_lbfgs launched {launches['gp_lbfgs']} times for "
+                 f"{fit_calls.n} GP bank fits")
         if launches["rls_update"] or launches["fused_tick"]:
             fail(f"the per-tick kernels ran on the Demeter path: {launches}")
     out = {"scenarios": S, "n_steps": res.n_steps, "wall_s": res.wall_s,
@@ -1597,6 +1807,7 @@ def demeter_main_path(n_seeds: int, device: str = "cuda") -> dict:
                                    for s in res.scenarios),
            "arima_ticks": eng.forecast_bank.arima_ticks,
            "arima_chunks": chunks, "intervals": intervals,
+           "gp_bank_fits": fit_calls.n, "gp_fit_n_max": fit_calls.n_max,
            "launches": launches, "layer_wall_s": timers.wall,
            "layer_calls": timers.calls}
     print("demeter main path " + json.dumps(out), flush=True)
@@ -3023,6 +3234,231 @@ def vlm_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
     return out
 
 
+def launch_counted():
+    """Every kernel wrapper that counts its launches: K1-K7, the per-tick
+    counterparts of K2 and K1, and the GP fit."""
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     fused_tick, gp_fit, grouped_matmul,
+                                     rls_update, rmsnorm, ssd_scan)
+    return (fused_tick.fused_interval, rls_update.arima_chunk,
+            decode_attention.decode_attention, ssd_scan.ssd_scan,
+            flash_attention.flash_attention, grouped_matmul.grouped_matmul,
+            rmsnorm.fused_rmsnorm, fused_tick.fused_tick,
+            rls_update.rls_rank1_update, gp_fit.gp_lbfgs)
+
+
+def kernel_launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    return {f.__name__: f.launches for f in launch_counted()}
+
+
+def reset_kernel_launches() -> None:
+    for f in launch_counted():
+        f.launches = 0
+
+
+def record_grad_norms(tr, norms: list, after_first=None):
+    """Wrap ``tr``'s train step so that each step appends its grad norm to
+    ``norms`` (and ``after_first()`` runs after the first); returns the
+    unwrapped step."""
+    step_fn = tr._step_fn
+
+    def step(*a):
+        out = step_fn(*a)
+        norms.append(float(out[2]["grad_norm"]))
+        if after_first is not None and len(norms) == 1:
+            after_first()
+        return out
+    tr._step_fn = step
+    return step_fn
+
+
+def train_step_bound(cfg, batch: int, seq: int, state_bytes: float) -> dict:
+    """The least time of one train step on the card: the matmuls' 6 N D
+    (N the matmul parameters, D the tokens) plus the plain attention's
+    score and value products (forward and backward, the full S x S the
+    route computes) at the dense bf16 peak, against reading and writing
+    the parameters, moments and error feedback once at the memory rate."""
+    d, L = cfg.d_model, cfg.n_layers
+    per_layer = 4 * d * d + 3 * d * cfg.d_ff
+    matmul_params = L * per_layer + d * cfg.vocab_size
+    attn = 3 * 4 * batch * seq ** 2 * d * L
+    ops = 6 * matmul_params * batch * seq + attn
+    return {"matmul_params": matmul_params, "tflop": ops / 1e12,
+            **bound(2 * state_bytes, ops, BF16_OPS_PER_S)}
+
+
+def training_main_path(device: str = "cuda", layers: int = TRAIN_LAYERS,
+                       seq: int = TRAIN_SEQ, arch: str = TRAIN_ARCH) -> dict:
+    """Phase 28: ``ElasticTrainer`` on ``arch`` at full width in bfloat16
+    (``layers`` layers) on the plain attention route, with int8
+    error-feedback compression and 2 microbatches: TRAIN_FAIL_AFTER steps
+    with a checkpoint every TRAIN_CKPT_EVERY, a failure, then steps until
+    TRAIN_UNTIL (the restore of the newest checkpoint and the replay of the
+    steps after it, then a second checkpoint). The replayed losses equal the
+    first pass's bit for bit, every loss is finite and every grad norm
+    positive, and no kernel of the port launches (the reference's training
+    runs none of its Pallas kernels). Prints the median step time, the
+    save (host copy), write and restore walls, the peak device memory and
+    one step's device idle share."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.training import (DataConfig, ElasticTrainer, FTConfig,
+                                      OptimizerConfig, TrainConfig)
+    on_card = device == "cuda"
+    cfg = get_config(arch).scaled(n_layers=layers,
+                                  attention_impl="reference")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = ElasticTrainer(
+        cfg, TrainConfig(optimizer=OptimizerConfig(
+            lr=6e-4, warmup_steps=2, total_steps=TRAIN_UNTIL),
+            accum_steps=2, compress_grads=True),
+        DataConfig(batch_per_host=TRAIN_BATCH, seq_len=seq),
+        FTConfig(checkpoint_dir=str(TRAIN_CKPT),
+                 checkpoint_interval_steps=TRAIN_CKPT_EVERY),
+        device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    walls = {"save_s": [], "write_wait_s": [], "restore_s": []}
+    norms, first_step = [], {}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            sync(device)
+            walls[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    step_fn = record_grad_norms(
+        tr, norms, lambda: first_step.update(kernel_launches()))
+    tr.ckpt.save = timed("save_s", tr.ckpt.save)
+    tr.ckpt.wait = timed("write_wait_s", tr.ckpt.wait)
+    tr._recover = timed("restore_s", tr._recover)
+    reset_kernel_launches()
+    tr.run(TRAIN_FAIL_AFTER)
+    first = {e.step: e.loss for e in tr.events}
+    tr.inject_failure()
+    tr.run(TRAIN_UNTIL - TRAIN_CKPT_EVERY)
+    launches = kernel_launches()
+    replay = tr.events[TRAIN_FAIL_AFTER:]
+    replayed = [e for e in replay if e.step in first]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    steps = [e.step for e in tr.events]
+    want = list(range(TRAIN_FAIL_AFTER)) + list(range(TRAIN_CKPT_EVERY,
+                                                      TRAIN_UNTIL))
+    if steps != want or tr.step != TRAIN_UNTIL:
+        fail(f"training: step events {steps}, expected {want}")
+    if not replayed or any(e.loss != first[e.step] for e in replayed):
+        fail(f"training: the replay parts from the first pass: "
+             f"{[(e.step, e.loss, first[e.step]) for e in replayed]}")
+    if not all(math.isfinite(e.loss) for e in tr.events) \
+            or not all(n > 0 and math.isfinite(n) for n in norms):
+        fail(f"training: losses {[e.loss for e in tr.events]}, grad norms "
+             f"{norms}")
+    if any(launches.values()) or any(first_step.values()):
+        fail(f"training launched the port's kernels: {launches}")
+    if tr.ckpt.list_steps() != [TRAIN_CKPT_EVERY, TRAIN_UNTIL]:
+        fail(f"training: checkpoints {tr.ckpt.list_steps()}")
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      [*tr.model.parameters(),
+                       *tr.state["opt"]["m"].values(),
+                       *tr.state["opt"]["v"].values(),
+                       *tr.state["ef"].values()])
+    tokens = TRAIN_BATCH * seq
+    durations = [e.duration_s for e in tr.events[1:]]
+    out = {"arch": arch, "layers": layers, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in tr.model.parameters()),
+           "batch": TRAIN_BATCH, "seq": seq, "accum_steps": 2,
+           "compress_grads": True, "init_s": init_s,
+           "losses": [e.loss for e in tr.events], "grad_norms": norms,
+           "replayed_steps": [e.step for e in replayed],
+           "first_step_s": tr.events[0].duration_s,
+           "step_s_median": statistics.median(durations),
+           "tokens_per_s": tokens / statistics.median(durations),
+           "checkpoint_gb": state_bytes / 1e9, **walls,
+           "peak_memory_gb": peak_gb,
+           "launches_first_step": first_step, "launches": launches,
+           "bound": train_step_bound(cfg, TRAIN_BATCH, seq, state_bytes)}
+    if on_card:
+        batch = tr.batch(tr.step)
+        out["one_step"] = device_busy(
+            lambda: step_fn(tr.model, tr.state, batch))
+        out["bound"]["share_of_median_step"] = \
+            out["bound"]["bound_ms"] / (out["step_s_median"] * 1e3)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    del tr
+    print("training main path " + json.dumps(out), flush=True)
+    return out
+
+
+def training_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """Phase 29: the trainer on deepseek-7b's smoke config in float32
+    (TF32 off) with 2 microbatches, TRAIN_CARD_VS_CPU's steps on each
+    device from the same parameters: losses, grad norms and final
+    parameters within TRAIN_CARD_VS_CPU_BAR. Adam's eps is 1e-3 here, not
+    1e-8, where an entry whose gradient is a few ulps of its terms would
+    move by a fraction of the learning rate that those last bits decide;
+    and the gradients are not compressed, since an int8 code one ulp from
+    a rounding tie may round either way on the two devices."""
+    import shutil
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.training import (DataConfig, ElasticTrainer, FTConfig,
+                                      OptimizerConfig, TrainConfig)
+    b, s, steps = TRAIN_CARD_VS_CPU
+    cfg = smoke_config(TRAIN_ARCH).scaled(attention_impl="reference",
+                                          dtype="float32")
+    runs, base = {}, None
+    for dev in devices:
+        d = TRAIN_CKPT.with_name(f"train_ckpt_{dev}")
+        shutil.rmtree(d, ignore_errors=True)
+        norms = []
+        with NoTF32(), (CpuThreads() if dev == "cpu"
+                        else contextlib.nullcontext()):
+            tr = ElasticTrainer(
+                cfg, TrainConfig(optimizer=OptimizerConfig(
+                    lr=1e-3, warmup_steps=0, total_steps=steps, eps=1e-3),
+                    accum_steps=2),
+                DataConfig(batch_per_host=b, seq_len=s),
+                FTConfig(checkpoint_dir=str(d),
+                         checkpoint_interval_steps=steps), device=dev)
+            if base is None:
+                base = {k: v.cpu() for k, v in tr.model.state_dict().items()}
+            tr.model.load_state_dict(base)
+            record_grad_norms(tr, norms)
+            if dev == "cuda":
+                reset_kernel_launches()
+            tr.run(steps)
+            launches = kernel_launches() if dev == "cuda" else None
+        runs[dev] = ([e.loss for e in tr.events], norms,
+                     {k: p.detach().cpu()
+                      for k, p in tr.model.named_parameters()}, launches)
+        shutil.rmtree(d, ignore_errors=True)
+    (lc, nc, pc, launches), (lh, nh, ph, _) = (runs[d] for d in devices)
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))  # noqa
+    loss_rel, norm_rel = rel(lc, lh), rel(nc, nh)
+    param_err = max(float((pc[k] - p).abs().max() / p.abs().max())
+                    for k, p in ph.items())
+    bar = TRAIN_CARD_VS_CPU_BAR
+    if not (loss_rel < bar and norm_rel < bar and param_err < bar):
+        fail(f"training card vs CPU: losses {lc} vs {lh}, grad norms {nc} "
+             f"vs {nh}, parameters {param_err} of scale")
+    if devices[0] == "cuda" and any(launches.values()):
+        fail(f"training card vs CPU launched the port's kernels: {launches}")
+    out = {"arch": cfg.name, "steps": steps, "batch": b, "seq": s,
+           "losses": dict(zip(devices, (lc, lh))), "loss_rel_diff": loss_rel,
+           "grad_norm_rel_diff": norm_rel, "param_err_of_scale": param_err,
+           "bar": bar, "launches": launches}
+    print("training card vs cpu " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3061,7 +3497,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all(["fused_tick", "rls_update", "decode_attention",
                             "ssd_scan", "flash_attention", "grouped_matmul",
-                            "rmsnorm"])
+                            "rmsnorm", "gp_fit"])
     for lib_name in libs:
         build.load(lib_name)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
@@ -3230,6 +3666,12 @@ def main() -> int:
         rms_rows[str(dtype).split(".")[-1]] = r = check_fused_rmsnorm(
             RMSNORM_MAIN, dtype, timed=True)
         print("kernel fused_rmsnorm " + json.dumps(r), flush=True)
+    # the GP bank's fit at phase 5's 96 members (n_max 64: the factors in
+    # shared memory), and above SHARED_N points (in the global scratch)
+    gp_fit = check_gp_fit()
+    print("kernel gp_lbfgs " + json.dumps(gp_fit), flush=True)
+    gp_fit_large = check_gp_fit(*GP_FIT_LARGE, timed=False)
+    print("kernel gp_lbfgs " + json.dumps(gp_fit_large), flush=True)
     print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the baseline path ------------------------------------------------
@@ -3370,6 +3812,22 @@ def main() -> int:
     print(f"phase 27 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t_phase:.1f} s)")
 
+    # -- 28. the training path: deepseek-7b at full width, 2 layers ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    train = training_main_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 28 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- 29. training, card against CPU --------------------------------------
+    t_phase = time.perf_counter()
+    training_card_vs_cpu()
+    print(f"phase 29 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
     # -- summary lines: each kernel's launches on its main path and its
     # times at that path's shapes
     tick = tick_rows[main_tick_rows]
@@ -3489,6 +3947,18 @@ def main() -> int:
         "bound_ms": gmm["bound_ms"], "bound_by": gmm["bound_by"],
         "library_ms": gmm["library_ms"],
     }, {
+        "name": "gp_lbfgs", "route": "cuda",
+        "source": "src/repro_torch/csrc/gp_fit.cu",
+        # not a TPU kernel: the reference's fit is plain JAX (optax.lbfgs in
+        # a lax.while_loop), which this one launch replaces
+        "replaces": "src/repro/core/gp_bank.py:112",
+        "launches": main_path["launches"]["gp_lbfgs"],
+        "max_abs_err": max(gp_fit["max_abs_err"],
+                           gp_fit_large["max_abs_err"]),
+        "ms": gp_fit["ms"], "plain_ms": gp_fit["plain_ms"],
+        "bound_ms": gp_fit["bound_ms"], "bound_by": gp_fit["bound_by"],
+        "library_ms": None,
+    }, {
         "name": "fused_rmsnorm", "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:32",
@@ -3515,7 +3985,10 @@ def main() -> int:
                 fail(f"{k['name']} was not launched on the {label} path")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
-    print(json.dumps({"kernels": kernels}))
+    # the training path runs none of them (phase 28 fails otherwise)
+    print(json.dumps({"kernels": kernels, "training": {
+        "launches_one_step": train["launches_first_step"],
+        "launches_phase": train["launches"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

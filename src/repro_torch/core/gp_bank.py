@@ -3,9 +3,13 @@
 :class:`GPBank` packs many exact GPs — one per (segment, objective) and, in
 a sweep, per scenario — into stacked, zero-padded float32 tensors on one
 device and fits **all** their hyper-parameters together: every (member,
-restart) pair is one row of a batched L-BFGS (:func:`lbfgs_batched`), so a
-whole model update is one batched optimization instead of a scipy loop per
-model.
+restart) pair is one row of a batched L-BFGS, the reference's optimizer
+(``optax.lbfgs()``: memory 10 with the zoom line search, run until
+``max_iter`` iterations or a gradient norm of ``GRAD_TOL``), so a whole
+model update is one batched optimization instead of a scipy loop per
+model. On the card the batch is one launch of the fit kernel
+(``csrc/gp_fit.cu``), a CTA per row; on the CPU its plain version,
+:func:`lbfgs_batched`.
 
 The batched path and the scalar oracle (:meth:`repro_torch.core.gp.GP.fit`)
 optimize the *same* masked marginal-likelihood objective from the *same*
@@ -30,8 +34,9 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..kernels import ops
 from .executor import resolve_device
-from .gp import (GP, _cholesky, _kernel_matrix, _matern52, _neg_mll,
+from .gp import (GP, _cholesky, _kernel_matrix, _matern52,
                  _unpack, fallback_theta, neg_mll_and_grad, restart_inits)
 
 #: Default optimizer budget; mirrors ModelBank's scalar-path settings.
@@ -39,12 +44,20 @@ DEFAULT_RESTARTS = 2
 DEFAULT_MAX_ITER = 60
 #: Gradient-norm tolerance of the batched L-BFGS (the reference's).
 GRAD_TOL = 1e-5
-#: L-BFGS memory (optax's default), Armijo constant, halvings tried in the
-#: line search's second pass, and how often the host reads the done mask.
+#: L-BFGS memory (``optax.lbfgs``'s default).
 LBFGS_MEMORY = 10
-ARMIJO_C1 = 1e-4
-LADDER = 8
-CHECK_EVERY = 5
+#: The zoom line search as ``optax.lbfgs()`` builds it
+#: (``scale_by_zoom_linesearch(max_linesearch_steps=20,
+#: initial_guess_strategy="one")`` at its default tolerances): trials per
+#: search, the sufficient-decrease and curvature constants, the approximate
+#: Wolfe tolerance, the interval length below which zoom settles for a
+#: step of sufficient decrease, and the bracketing growth factor.
+LS_MAX_STEPS = 20
+SLOPE_RTOL = 1e-4
+CURV_RTOL = 0.9
+APPROX_DEC_RTOL = 1e-6
+STEPSIZE_PRECISION = 1e-5
+INCREASE_FACTOR = 2.0
 
 _F32 = torch.float32
 
@@ -59,112 +72,264 @@ def bucket_pow2(n: int, minimum: int = 8) -> int:
 
 
 # --------------------------------------------------------------------------
-# batched L-BFGS over independent problems
+# batched L-BFGS over independent problems: optax.lbfgs() row by row
 # --------------------------------------------------------------------------
-def lbfgs_batched(fun: Callable[..., Tuple[torch.Tensor, torch.Tensor]],
-                  t0: torch.Tensor, *, max_iter: int) -> torch.Tensor:
-    """Minimize N independent problems at once; returns the (N, D) minima.
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
 
-    ``fun(theta)`` returns ``(values (N,), grads (N, D))``;
-    ``fun(theta, grad=False)`` returns the values alone. Each row is an
-    ordinary L-BFGS run (two-loop recursion over its last ``LBFGS_MEMORY``
-    curvature pairs) with its own "done" mask: a row stops moving once its
-    gradient norm is <= ``GRAD_TOL``, after ``max_iter`` iterations (at least
-    one, as the reference's loop), or when its line search finds no acceptable
-    step. A trial step with a non-finite value (a kernel matrix that is not
-    positive definite) is never accepted.
 
-    The line search is a backtracking Armijo search in batched passes: the
-    full step for every row; then, for the rows it failed, the ``LADDER``
-    halvings t/2 .. t/2^LADDER evaluated together (values only), taking the
-    longest acceptable one; then that step's gradient. A pass costs the same
-    launches whatever the batch, so an iteration costs at most three
-    objective passes, and the host reads the masks once per iteration (and
-    the done mask every ``CHECK_EVERY`` iterations).
+def _decrease_error(step, value, slope, value0, slope0):
+    """The sufficient-decrease violation (0 where met, inf where NaN):
+    Armijo's, or Hager and Zhang's approximate Wolfe condition near a
+    minimum, whichever is smaller."""
+    armijo = value - value0 - SLOPE_RTOL * step * slope0
+    approx = torch.maximum(slope - (2 * SLOPE_RTOL - 1.0) * slope0,
+                           value - value0 - APPROX_DEC_RTOL * value0.abs())
+    err = torch.clamp(torch.minimum(approx, armijo), min=0.0)
+    return torch.where(torch.isnan(err), torch.inf, err)
+
+
+def _curvature_error(slope, slope0):
+    """The strong-Wolfe curvature violation (0 where met, inf where NaN)."""
+    err = torch.clamp(slope.abs() - CURV_RTOL * slope0.abs(), min=0.0)
+    return torch.where(torch.isnan(err), torch.inf, err)
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """Critical point of the cubic through (a, fa), (b, fb), (c, fc) with
+    slope fpa at a; NaN where there is none (then it is not used)."""
+    db, dc = b - a, c - a
+    p = db * dc
+    denom = p * p * (db - dc)
+    v0, v1 = fb - fa - fpa * db, fc - fa - fpa * dc
+    big_a = (dc * dc * v0 + -(db * db) * v1) / denom
+    big_b = (-(dc * (dc * dc)) * v0 + db * (db * db) * v1) / denom
+    radical = big_b * big_b - 3.0 * big_a * fpa
+    return a + (-big_b + torch.sqrt(radical)) / (3.0 * big_a)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """Critical point of the quadratic through (a, fa), (b, fb) with slope
+    fpa at a."""
+    db = b - a
+    return a - fpa / (2.0 * ((fb - fa - fpa * db) / (db * db)))
+
+
+def lbfgs_batched(fun: Callable[[torch.Tensor, Optional[torch.Tensor]],
+                                Tuple[torch.Tensor, torch.Tensor]],
+                  t0: torch.Tensor, *, max_iter: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Minimize N independent problems at once, each row as the
+    reference's loop runs ``optax.lbfgs()``; returns the (N, D) minima and
+    each row's iteration count (N,).
+
+    ``fun(theta, rows)`` returns ``(values (k,), grads (k, D))`` of the
+    problems ``rows`` (an index tensor; ``None`` for all N) at ``theta``
+    (k, D). Per row, as ``optax.scale_by_lbfgs(memory_size=10,
+    scale_init_precond=True)``: every curvature pair is stored, with weight
+    ``1/(s.y)`` (0 where ``s.y == 0``); the initial inverse Hessian is
+    ``gamma I`` with gamma ``s.y / y.y`` of the newest pair (1 where
+    ``y.y == 0``), and ``min(1, 1/|g|)`` at the first iteration; the
+    two-loop recursion runs over all ten slots. The step comes from
+    ``scale_by_zoom_linesearch`` (strong Wolfe: :func:`_decrease_error`,
+    :func:`_curvature_error`): the first trial at step 1, then doubling
+    until an interval is bracketed, then zoom by cubic, quadratic or
+    bisection; after ``LS_MAX_STEPS`` trials, or once the interval is
+    shorter than ``STEPSIZE_PRECISION`` with a step of sufficient decrease
+    in hand, the search takes the best such step, else keeps its last
+    trial. The value and gradient at the new point are the search's;
+    where that value is not finite they are recomputed at the point, as
+    ``optax.value_and_grad_from_state`` does. A row runs at least one
+    iteration, then while its count is below ``max_iter`` and the search's
+    gradient norm exceeds ``GRAD_TOL``; a failed search does not stop it.
+
+    This is the plain version of the fit kernel (``csrc/gp_fit.cu``, which
+    runs every row's whole loop on the card in one launch); the bank uses
+    it on the CPU. Each line-search trial is one value-and-gradient pass
+    over the rows still searching. The host reads one small status vector
+    per trial, which names the rows still searching and, once none is, the
+    rows that go on to the next iteration (and those whose value is
+    recomputed): one read per iteration when every search ends at its first
+    trial, and one more for each further trial that some row's bracketing
+    or zoom needs (near the optimum most searches take all 20).
     """
+    N, D = t0.shape
+    dev, dt = t0.device, t0.dtype
+    M = LBFGS_MEMORY
+    zeros = lambda: torch.zeros(N, dtype=dt, device=dev)   # noqa: E731
     theta = t0.clone()
-    N, D = theta.shape
-    dev, dt = theta.device, theta.dtype
-    f, g = fun(theta)
-    S = torch.zeros((LBFGS_MEMORY, N, D), dtype=dt, device=dev)
+    S = torch.zeros((M, N, D), dtype=dt, device=dev)
     Y = torch.zeros_like(S)
-    rho = torch.zeros((LBFGS_MEMORY, N), dtype=dt, device=dev)
-    gamma = torch.ones(N, dtype=dt, device=dev)
-    has_hist = torch.zeros(N, dtype=torch.bool, device=dev)
-    done = torch.zeros(N, dtype=torch.bool, device=dev)
-    halvings = 0.5 ** torch.arange(1, LADDER + 1, dtype=dt, device=dev)
-    for it in range(max_iter):
-        active = ~done
-        # two-loop recursion, newest pair first (empty slots have rho = 0)
-        q = g.clone()
-        alphas = []
-        slots = [(it - 1 - i) % LBFGS_MEMORY
-                 for i in range(min(it, LBFGS_MEMORY))]
-        for s in slots:
-            a = rho[s] * (S[s] * q).sum(1)
-            q = q - a[:, None] * Y[s]
-            alphas.append(a)
-        r = gamma[:, None] * q
-        for s, a in zip(reversed(slots), reversed(alphas)):
-            b = rho[s] * (Y[s] * r).sum(1)
-            r = r + S[s] * (a - b)[:, None]
-        d = -r
-        gd = (g * d).sum(1)
-        # no curvature pairs yet, or not a descent direction: steepest
-        # descent with a first step of length at most 1
-        steep = ~has_hist | ~(gd < 0)
-        d = torch.where(steep[:, None], -g, d)
-        gd = torch.where(steep, -(g * g).sum(1), gd)
-        t = torch.where(steep, torch.clamp(1.0 / d.norm(dim=1), max=1.0),
-                        torch.ones_like(gd))
-        pending = active & torch.isfinite(gd)
-        # pass 1: the full step
-        cand = theta + t[:, None] * d
-        fc, gc = fun(cand)
-        accepted = pending & torch.isfinite(fc) \
-            & (fc <= f + ARMIJO_C1 * t * gd)
-        theta_new = torch.where(accepted[:, None], cand, theta)
-        f_new = torch.where(accepted, fc, f)
-        g_new = torch.where(accepted[:, None], gc, g)
-        pending &= ~accepted
-        if bool(pending.any()):
-            # pass 2: every halving of the failed rows at once (values)
-            tl = t[None, :] * halvings[:, None]                 # (L, N)
-            cl = theta[None] + tl[:, :, None] * d[None]         # (L, N, D)
-            fl = fun(cl.reshape(-1, D), grad=False).reshape(LADDER, N)
-            okl = torch.isfinite(fl) \
-                & (fl <= f[None] + ARMIJO_C1 * tl * gd[None])
-            first = torch.argmax(okl.to(torch.int8), dim=0)     # longest step
-            found = pending & okl.any(0)
-            t2 = tl.gather(0, first[None])[0]
-            # pass 3: value and gradient at the accepted halving
-            cand = theta + t2[:, None] * d
-            fc, gc = fun(cand)
-            theta_new = torch.where(found[:, None], cand, theta_new)
-            f_new = torch.where(found, fc, f_new)
-            g_new = torch.where(found[:, None], gc, g_new)
-            accepted |= found
-        s_vec = theta_new - theta
-        y_vec = g_new - g
-        sy = (s_vec * y_vec).sum(1)
-        yy = (y_vec * y_vec).sum(1)
-        pair = accepted & (sy > 1e-10) & torch.isfinite(sy) & (yy > 0)
-        slot = it % LBFGS_MEMORY
-        S[slot] = torch.where(pair[:, None], s_vec, 0.0)
-        Y[slot] = torch.where(pair[:, None], y_vec, 0.0)
-        rho[slot] = torch.where(pair, 1.0 / torch.where(pair, sy, 1.0), 0.0)
-        gamma = torch.where(pair, sy / torch.where(pair, yy, 1.0), gamma)
-        has_hist |= pair
-        theta, f, g = theta_new, f_new, g_new
-        done |= (active & ~accepted) | (g.norm(dim=1) <= GRAD_TOL)
-        if (it + 1) % CHECK_EVERY == 0 and bool(done.all()):
-            break
-    return theta
+    W = torch.zeros((M, N), dtype=dt, device=dev)
+    prev_theta, prev_g = torch.zeros_like(theta), torch.zeros_like(theta)
+    # the value and gradient the last search left at theta (optax's stored
+    # ones: inf and zeros before the first iteration)
+    f = torch.full((N,), torch.inf, dtype=dt, device=dev)
+    g = torch.zeros_like(theta)
+    counts = torch.zeros(N, dtype=torch.int64, device=dev)
+    rows = recompute = torch.arange(N, device=dev)
+    it = 0
+    while rows.numel():
+        act = torch.zeros(N, dtype=torch.bool, device=dev)
+        act[rows] = True
+        if recompute.numel():
+            v, gr = fun(theta[recompute],
+                        None if recompute.numel() == N else recompute)
+            f, g = f.index_copy(0, recompute, v), g.index_copy(0, recompute,
+                                                               gr)
+        # -- scale_by_lbfgs: store the newest pair, then precondition -----
+        cur, prev = it % M, (it - 1) % M
+        if it > 0:
+            ds, dy = theta - prev_theta, g - prev_g
+            sy, yy = _dot(dy, ds), _dot(dy, dy)
+            S[prev] = torch.where(act[:, None], ds, S[prev])
+            Y[prev] = torch.where(act[:, None], dy, Y[prev])
+            W[prev] = torch.where(act, torch.where(sy == 0.0, 0.0, 1.0 / sy),
+                                  W[prev])
+            gamma = torch.where(yy > 0.0, sy / yy, 1.0)
+        else:
+            gamma = torch.clamp(1.0 / g.norm(dim=1), max=1.0)
+        prev_theta = torch.where(act[:, None], theta, prev_theta)
+        prev_g = torch.where(act[:, None], g, prev_g)
+        order = [(cur + i) % M for i in range(M)]
+        q, alphas = g, {}
+        for j in reversed(order):                       # newest first
+            alphas[j] = W[j] * _dot(S[j], q)
+            q = q - alphas[j][:, None] * Y[j]
+        q = gamma[:, None] * q
+        for j in order:                                 # oldest first
+            q = q + (alphas[j] - W[j] * _dot(Y[j], q))[:, None] * S[j]
+        d = -q
+        # -- scale_by_zoom_linesearch -------------------------------------
+        slope0 = _dot(d, g)
+        step, val, grd, slope = zeros(), f, g, slope0
+        dec = torch.full((N,), torch.inf, dtype=dt, device=dev)
+        found = torch.zeros(N, dtype=torch.bool, device=dev)
+        low = high = ref = zeros()
+        v_low = v_high = v_ref = f
+        s_low = s_high = slope0
+        safe, safe_v, safe_g = zeros(), f, g
+        pend, prows = act, rows
+        for trial in range(LS_MAX_STEPS):
+            last = trial + 1 >= LS_MAX_STEPS
+            # the trial step: bracketing's (1, then doubling) or, on the
+            # rows with an interval (none at the first trial), zoom's
+            # interpolation inside it
+            new = (torch.ones_like(step) if trial == 0
+                   else INCREASE_FACTOR * step)
+            if trial:
+                delta = (high - low).abs()
+                left = torch.minimum(high, low)
+                right = torch.maximum(high, low)
+                mc = _cubicmin(low, v_low, s_low, high, v_high, ref, v_ref)
+                use_c = (mc > left + 0.2 * delta) & (mc < right - 0.2 * delta)
+                mq = _quadmin(low, v_low, s_low, high, v_high)
+                use_q = ~use_c & (mq > left + 0.1 * delta) \
+                    & (mq < right - 0.1 * delta)
+                mid = torch.where(use_q, mq, torch.where(use_c, mc, ref))
+                mid = torch.where(~use_c & ~use_q, (low + high) / 2.0, mid)
+                new = torch.where(found, mid, new)
+            nv, ng = fun(theta[prows] + new[prows, None] * d[prows],
+                         None if prows.numel() == N else prows)
+            n_v = torch.full_like(f, torch.nan).index_copy(0, prows, nv)
+            n_g = torch.zeros_like(g).index_copy(0, prows, ng)
+            n_s = _dot(n_g, d)
+            n_dec = _decrease_error(new, n_v, n_s, f, slope0)
+            ok = torch.maximum(n_dec, _curvature_error(n_s, slope0)) <= 0.0
+            sufficient = n_dec <= 0.0
+            # bracketing (Nocedal and Wright, algorithm 3.5)
+            hi_new = (n_dec > 0.0) | ((n_v >= val) & (trial > 0))
+            lo_new = (n_s >= 0.0) & ~hi_new
+            nxt_low = torch.where(lo_new, new, step)
+            nxt_vlow = torch.where(lo_new, n_v, val)
+            nxt_slow = torch.where(lo_new, n_s, slope)
+            nxt_high = torch.where(lo_new, step, new)
+            nxt_vhigh = torch.where(lo_new, val, n_v)
+            nxt_shigh = torch.where(lo_new, slope, n_s)
+            nxt_ref, nxt_vref = nxt_low, nxt_vlow
+            take_safe = sufficient
+            fail = torch.full_like(ok, last) & ~ok
+            if trial:
+                # zoom (algorithm 3.6) on the rows with an interval
+                z_safe = sufficient & (n_v < safe_v)
+                hi_mid = (n_dec > 0.0) | (n_v >= v_low)
+                hi_low = (n_s * (high - low) >= 0.0) & ~hi_mid
+                moved = hi_mid | hi_low
+                z_fail = (torch.full_like(ok, last)
+                          | ((delta <= STEPSIZE_PRECISION)
+                             & (torch.where(z_safe, new, safe) > 0.0))) & ~ok
+                pick = lambda z, b: torch.where(found, z, b)  # noqa: E731
+                nxt_high = pick(torch.where(
+                    hi_low, low, torch.where(hi_mid, new, high)), nxt_high)
+                nxt_vhigh = pick(torch.where(
+                    hi_low, v_low, torch.where(hi_mid, n_v, v_high)),
+                    nxt_vhigh)
+                nxt_shigh = pick(torch.where(
+                    hi_low, s_low, torch.where(hi_mid, n_s, s_high)),
+                    nxt_shigh)
+                nxt_low = pick(torch.where(hi_mid, low, new), nxt_low)
+                nxt_vlow = pick(torch.where(hi_mid, v_low, n_v), nxt_vlow)
+                nxt_slow = pick(torch.where(hi_mid, s_low, n_s), nxt_slow)
+                nxt_ref = pick(torch.where(moved, high, low), nxt_ref)
+                nxt_vref = pick(torch.where(moved, v_high, v_low), nxt_vref)
+                take_safe = pick(z_safe, take_safe)
+                fail = pick(z_fail, fail)
+            found = torch.where(pend, found | hi_new | lo_new | ok, found)
+            low = torch.where(pend, nxt_low, low)
+            v_low = torch.where(pend, nxt_vlow, v_low)
+            s_low = torch.where(pend, nxt_slow, s_low)
+            high = torch.where(pend, nxt_high, high)
+            v_high = torch.where(pend, nxt_vhigh, v_high)
+            s_high = torch.where(pend, nxt_shigh, s_high)
+            ref = torch.where(pend, nxt_ref, ref)
+            v_ref = torch.where(pend, nxt_vref, v_ref)
+            ts = pend & take_safe
+            safe = torch.where(ts, new, safe)
+            safe_v = torch.where(ts, n_v, safe_v)
+            safe_g = torch.where(ts[:, None], n_g, safe_g)
+            step = torch.where(pend, new, step)
+            val = torch.where(pend, n_v, val)
+            grd = torch.where(pend[:, None], n_g, grd)
+            slope = torch.where(pend, n_s, slope)
+            dec = torch.where(pend, n_dec, dec)
+            # a failed search takes its best step of sufficient decrease,
+            # if it has one or its last trial left the domain
+            back = pend & fail & ((safe > 0.0) | torch.isinf(dec))
+            step = torch.where(back, safe, step)
+            val = torch.where(back, safe_v, val)
+            grd = torch.where(back[:, None], safe_g, grd)
+            pend = pend & ~ok & ~fail
+            # this trial's one host read: 1 still searching; else 2 goes
+            # on to the next iteration, 3 the same with its value
+            # recomputed, 0 stops
+            go = act & (counts + 1 < max_iter) & (grd.norm(dim=1) > GRAD_TOL)
+            status = torch.where(pend, 1, torch.where(
+                go, torch.where(torch.isfinite(val), 2, 3), 0)
+            ).to(torch.int8).cpu()
+            prows = torch.nonzero(status == 1)[:, 0].to(dev)
+            if not prows.numel():
+                break
+        # -- the step, with the search's value and gradient there ---------
+        theta = torch.where(act[:, None], theta + step[:, None] * d, theta)
+        f = torch.where(act, val, f)
+        g = torch.where(act[:, None], grd, g)
+        counts = counts + act.to(counts.dtype)
+        it += 1
+        rows = torch.nonzero(status >= 2)[:, 0].to(dev)
+        recompute = torch.nonzero(status == 3)[:, 0].to(dev)
+    return theta, counts
 
 
 def _fit_packed(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                 t0s: torch.Tensor, max_iter: int):
-    """Fit B padded GPs, each from R restarts, in one batched optimization.
+    """Fit B padded GPs, each from R restarts, in one batched optimization
+    (:func:`repro_torch.kernels.ops.gp_lbfgs`): on a CUDA device one launch
+    of the fit kernel, the whole of optax's L-BFGS for every row on the
+    card; on the CPU its plain version, :func:`lbfgs_batched` over
+    :func:`~repro_torch.core.gp.neg_mll_and_grad`.
+    Then, as the reference's ``_fit_packed``: each member's best restart
+    (the lowest finite objective), or the fallback theta where every
+    restart's objective is not finite.
 
     x: (B, n, d), y: (B, n) standardized, mask: (B, n), t0s: (B, R, d+2),
     float32 on one device. Returns the best theta (B, d+2), its objective
@@ -176,15 +341,8 @@ def _fit_packed(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     yr = y.repeat_interleave(R, dim=0)
     mr = mask.repeat_interleave(R, dim=0)
 
-    def fun(th: torch.Tensor, grad: bool = True):
-        if grad:
-            return neg_mll_and_grad(th, xr, yr, mr)
-        k = th.shape[0] // xr.shape[0]          # ladder passes tile the rows
-        with torch.no_grad():
-            return _neg_mll(th, xr.repeat(k, 1, 1), yr.repeat(k, 1),
-                            mr.repeat(k, 1))
-
-    ts = lbfgs_batched(fun, t0s.reshape(B * R, D), max_iter=max_iter)
+    ts, _ = ops.gp_lbfgs(x, y, mask, t0s.reshape(B * R, D), restarts=R,
+                         max_iter=max_iter)
     vs, _ = neg_mll_and_grad(ts, xr, yr, mr)
     vs = torch.where(torch.isfinite(vs), vs, torch.inf).reshape(B, R)
     j = torch.argmin(vs, dim=1)

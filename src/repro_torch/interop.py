@@ -5,8 +5,8 @@ parameters and, for the serving stack, model configs and weights. These
 helpers take plain Python and NumPy values — ``dataclasses.asdict`` of the
 reference's ``ClusterModel``, ``JobConfig`` and ``ModelConfig``, the fused
 engine's device state, a forecast-bank family's state and parameters, a
-fitted GP's arrays, and a model's parameter tree — so the conversion on the
-reference side needs nothing of this package.
+fitted GP's arrays, and a model's parameter tree and train state — so the
+conversion on the reference side needs nothing of this package.
 """
 from __future__ import annotations
 
@@ -213,6 +213,15 @@ def model_params_from_reference(cfg: model_config.ModelConfig,
     flat = dict(_flatten(params))
     model = init_params(cfg, device=device,
                         dtype=_to_torch(flat["final_norm.scale"]).dtype)
+    load_reference_params(model, _port_names(cfg, flat))
+    return model
+
+
+def _port_names(cfg: model_config.ModelConfig,
+                flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The reference's dotted leaves under the port's parameter names: the
+    layer stack unstacked into ``blocks.<i>.*`` (the MoE family's dense
+    ``prefix`` list first), the other leaves as they are."""
     n_prefix = cfg.moe.first_dense_layers if cfg.moe is not None else 0
     lead = ((cfg.n_layers // cfg.hybrid.period, cfg.hybrid.period)
             if cfg.family == "hybrid" else (cfg.n_layers - n_prefix,))
@@ -229,5 +238,31 @@ def model_params_from_reference(cfg: model_config.ModelConfig,
                              f"{a.shape[:len(lead)]}, the config has {lead}")
         for i, idx in enumerate(np.ndindex(*lead)):
             src[f"blocks.{n_prefix + i}.{name[len('stack.'):]}"] = a[idx]
-    load_reference_params(model, src)
-    return model
+    return src
+
+
+def train_state_from_reference(model: Transformer,
+                               state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's train state (``init_train_state``'s tree: ``{"opt":
+    {"m", "v", "step"}}`` and, with compression, ``"ef"``; NumPy leaves,
+    the moments and buffers in the reference's layer-stacked layout) as
+    the port's (:func:`repro_torch.training.init_train_state`'s): the same
+    tensors keyed by ``model``'s parameter names, on ``model``'s device."""
+    names = [n for n, _ in model.named_parameters()]
+    dev = next(model.parameters()).device
+
+    def tree(t: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        src = _port_names(model.cfg, dict(_flatten(t)))
+        if set(src) != set(names):
+            raise ValueError(f"state does not match the model's parameters:"
+                             f" missing {sorted(set(names) - set(src))}, "
+                             f"unknown {sorted(set(src) - set(names))}")
+        return {n: _to_torch(src[n]).to(dev) for n in names}
+
+    opt = state["opt"]
+    out = {"opt": {"m": tree(opt["m"]), "v": tree(opt["v"]),
+                   "step": torch.as_tensor(np.array(opt["step"]),
+                                           dtype=torch.int32).to(dev)}}
+    if "ef" in state:
+        out["ef"] = tree(state["ef"])
+    return out

@@ -60,6 +60,9 @@ SIGNATURES = {
     "rmsnorm": {
         "fused_rmsnorm_launch": [_C] * 5 + [_I64, _I, _D, _I, _I, _C],
     },
+    "gp_fit": {
+        "gp_lbfgs_launch": [_C] * 8 + [_I64] + [_I] * 4 + [_C],
+    },
 }
 
 #: Wall spent building (where needed) and loading each library in this

@@ -12,14 +12,15 @@ import torch
 from . import decode_attention as _decode_attention
 from . import flash_attention as _flash_attention
 from . import fused_tick as _fused_tick
+from . import gp_fit as _gp_fit
 from . import grouped_matmul as _grouped_matmul
 from . import rls_update as _rls_update
 from . import rmsnorm as _rmsnorm
 from . import ssd_scan as _ssd_scan
 from .ref import (arima_chunk_ref, decode_attention_ref,
                   flash_attention_ref, fused_interval_ref, fused_rmsnorm_ref,
-                  fused_tick_ref, grouped_matmul_ref, rls_rank1_update_ref,
-                  ssd_scan_ref)
+                  fused_tick_ref, gp_lbfgs_ref, grouped_matmul_ref,
+                  rls_rank1_update_ref, ssd_scan_ref)
 
 
 def rls_rank1_update(P: torch.Tensor, phi: torch.Tensor, lam: torch.Tensor):
@@ -153,3 +154,19 @@ def fused_rmsnorm(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor,
         return _rmsnorm.fused_rmsnorm(x, res, scale, eps=eps)
     raise ValueError(f"fused_rmsnorm takes CPU or CUDA tensors, got a "
                      f"tensor on {x.device}")
+
+
+def gp_lbfgs(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+             t0: torch.Tensor, *, restarts: int, max_iter: int):
+    """The GP bank's batched fit, a row per (member, restart); see
+    :func:`repro_torch.kernels.ref.gp_lbfgs_ref` for the function and the
+    shapes. Returns the fitted thetas and each row's iteration count."""
+    if x.device.type == "cpu":
+        return gp_lbfgs_ref(x, y, mask, t0, restarts, max_iter)
+    if x.device.type == "cuda":
+        theta, counts, _ = _gp_fit.gp_lbfgs(x, y, mask, t0,
+                                            restarts=restarts,
+                                            max_iter=max_iter)
+        return theta, counts
+    raise ValueError(f"gp_lbfgs takes CPU or CUDA tensors, got a tensor on "
+                     f"{x.device}")

@@ -498,3 +498,25 @@ def fused_rmsnorm_ref(x: torch.Tensor, res: torch.Tensor,
     var = s.square().mean(-1, keepdim=True)
     y = s * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return y.to(x.dtype), s.to(x.dtype)
+
+
+def gp_lbfgs_ref(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                 t0: torch.Tensor, restarts: int, max_iter: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GP bank's fit: optax's L-BFGS with the zoom line search
+    (:func:`repro_torch.core.gp_bank.lbfgs_batched`) over the masked
+    marginal-likelihood objective
+    (:func:`repro_torch.core.gp.neg_mll_and_grad`), a row per (member,
+    restart). x: ``(B, n, d)``, y and mask: ``(B, n)``, t0: ``(B *
+    restarts, d + 2)``, float32. Returns the fitted thetas and each row's
+    iteration count."""
+    # imported here: the modelling layer imports the kernels' dispatch
+    from ..core.gp import neg_mll_and_grad
+    from ..core.gp_bank import lbfgs_batched
+    xr, yr, mr = (t.repeat_interleave(restarts, dim=0) for t in (x, y, mask))
+
+    def fun(theta: torch.Tensor, rows):
+        if rows is None:
+            return neg_mll_and_grad(theta, xr, yr, mr)
+        return neg_mll_and_grad(theta, xr[rows], yr[rows], mr[rows])
+    return lbfgs_batched(fun, t0, max_iter=max_iter)

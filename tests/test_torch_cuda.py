@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers import int8_ties
 from helpers.sharded_diff import VOLATILE
 from repro_torch.configs import smoke_config
 from repro_torch.core import EngineConfig
@@ -1165,3 +1166,123 @@ def test_moe_serving_on_card_matches_cpu(cuda, arch):
             assert gmm_mod.grouped_matmul.launches - before \
                 == 3 * moe_layers * calls
     assert outs["cuda"] == outs["cpu"]
+
+
+def _kernel_launches() -> dict:
+    """Every kernel wrapper's launch count (K1-K7 and the per-tick
+    kernels)."""
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     fused_tick, grouped_matmul, rls_update,
+                                     rmsnorm, ssd_scan)
+    fns = (fused_tick.fused_tick, fused_tick.fused_interval,
+           rls_update.rls_rank1_update, rls_update.arima_chunk,
+           decode_attention.decode_attention, ssd_scan.ssd_scan,
+           flash_attention.flash_attention, grouped_matmul.grouped_matmul,
+           rmsnorm.fused_rmsnorm)
+    return {f.__name__: f.launches for f in fns}
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of the dense smoke config in float32 (TF32 off), with
+    compression and accumulation, from the same parameters on the card and
+    on the CPU: loss and grad norm within 1e-5, and the error feedback and
+    parameters as the CPU's (parameters within 1e-5 of each tensor's
+    scale) but where a gradient within float32 rounding of a tie of its
+    int8 code took the neighbouring code on one device: there the residual
+    differs by exactly one quantum and the parameter by at most 2 lr
+    (``helpers.int8_ties``); the step launches none of the port's
+    kernels."""
+    from repro_torch import training
+    cfg = smoke_config("deepseek_7b").scaled(attention_impl="reference",
+                                             dtype="float32")
+    tc = training.TrainConfig(
+        optimizer=training.OptimizerConfig(lr=1e-3, warmup_steps=0,
+                                           eps=1e-3),
+        accum_steps=2, compress_grads=True)
+    batch = training.make_pipeline(cfg, training.DataConfig(4, 16)).batch(0)
+    base = init_params(cfg, seed=0, device="cpu")
+    out = {}
+    launches = _kernel_launches()
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            model = copy.deepcopy(base).to(dev)
+            state = training.init_train_state(model, tc)
+            with int8_ties.compression_inputs() as calls:
+                model, state, m = training.make_train_step(cfg, tc)(
+                    model, state, {k: torch.from_numpy(v).to(dev)
+                                   for k, v in batch.items()})
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        {n: p.detach().cpu()
+                         for n, p in model.named_parameters()},
+                        {n: e.cpu() for n, e in state["ef"].items()},
+                        calls[0], float(m["lr"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    (lc, gc, pc, ec, _, _), (lh, gh, ph, eh, call, lr) = \
+        out["cuda"], out["cpu"]
+    assert launches == _kernel_launches()
+    assert lc == pytest.approx(lh, rel=1e-5)
+    assert gc == pytest.approx(gh, rel=1e-5)
+    parted = int8_ties.assert_only_ties_part(call, ec, eh, pc, ph, lr=lr,
+                                             bar=1e-5, names=list(ph))
+    assert parted <= 1e-4 * sum(p.numel() for p in ph.values()), parted
+
+
+@pytest.mark.cuda
+def test_checkpoint_saved_on_card_restores_on_cpu(cuda, tmp_path):
+    """A trainer's tree saved on the card restores onto the CPU (the
+    like tree moved there by ``rescale``) bit for bit, bf16 included."""
+    from repro_torch.distributed import rescale
+    from repro_torch.training import CheckpointManager
+    cfg = smoke_config("deepseek_7b")
+    model = init_params(cfg, seed=3, device="cuda")
+    tree = {"params": dict(model.named_parameters()),
+            "step": torch.tensor(4, dtype=torch.int32, device="cuda")}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(4, tree, blocking=True)
+    step, back = mgr.restore(like=rescale(tree, "cpu"))
+    assert step == 4
+    for name, p in tree["params"].items():
+        q = back["params"][name]
+        assert q.device.type == "cpu" and q.dtype == p.dtype
+        assert torch.equal(q, p.detach().cpu())
+    assert int(back["step"]) == 4
+
+
+@pytest.mark.cuda
+def test_gp_fit_kernel_matches_plain_version(cuda):
+    """The GP bank's fit kernel against its plain version
+    (``kernels.ref.gp_lbfgs_ref``: the batched L-BFGS over the autograd
+    objective) on the card: the first two
+    iterates within 1e-3 of theta's scale, and the members' best
+    objectives after the full fit within 1e-3 relative."""
+    from repro_torch.core.gp import neg_mll_and_grad, restart_inits
+    from repro_torch.kernels.gp_fit import gp_lbfgs
+    from repro_torch.kernels.ref import gp_lbfgs_ref
+    rng = np.random.default_rng(5)
+    B, n, d, R = 6, 16, 5, 2
+    x = rng.uniform(0, 1, (B, n, d))
+    y = rng.normal(0, 1, (B, n))
+    mask = np.ones((B, n))
+    mask[::2, 11:] = 0.0
+    y *= mask
+    t0 = np.concatenate([restart_inits(d, R, 7 * i) for i in range(B)])
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device="cuda")
+    x, y, mask, t0 = f32(x), f32(y), f32(mask), f32(t0)
+    xr, yr, mr = (t.repeat_interleave(R, dim=0) for t in (x, y, mask))
+    for it in (1, 2):
+        got, counts, _ = gp_lbfgs(x, y, mask, t0, restarts=R, max_iter=it)
+        want, _ = gp_lbfgs_ref(x, y, mask, t0, R, it)
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-3
+        assert (counts == it).all()
+    got, _, evals = gp_lbfgs(x, y, mask, t0, restarts=R, max_iter=60)
+    want, _ = gp_lbfgs_ref(x, y, mask, t0, R, 60)
+    fk = neg_mll_and_grad(got, xr, yr, mr)[0].reshape(B, R).min(1).values
+    fp = neg_mll_and_grad(want, xr, yr, mr)[0].reshape(B, R).min(1).values
+    assert float(((fk - fp).abs() / fp.abs().clamp_min(1.0)).max()) < 1e-3
+    _, counts, _ = gp_lbfgs(x, y, mask, t0, restarts=R, max_iter=60)
+    assert ((counts >= 1) & (counts <= 60) & (evals > counts)).all()

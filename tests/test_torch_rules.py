@@ -38,6 +38,7 @@ def _env():
                                     "repro_torch.kernels.flash_attention",
                                     "repro_torch.kernels.grouped_matmul",
                                     "repro_torch.kernels.rmsnorm",
+                                    "repro_torch.kernels.gp_fit",
                                     "repro_torch.models",
                                     "repro_torch.models.moe",
                                     "repro_torch.models.mla",
@@ -46,7 +47,10 @@ def _env():
                                     "repro_torch.launch.serve",
                                     "repro_torch.obs",
                                     "repro_torch.fleet",
-                                    "repro_torch.fleet.loadgen"])
+                                    "repro_torch.fleet.loadgen",
+                                    "repro_torch.training",
+                                    "repro_torch.distributed",
+                                    "repro_torch.launch.train"])
 def test_port_imports_neither_jax_nor_reference(module):
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
@@ -136,7 +140,31 @@ def _builders():
                                    SoakConfig, run_soak)
     from repro_torch.fleet.api import main as fleet_main
     from repro_torch.fleet.loadgen import main as loadgen_main
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.training import (CheckpointManager, DataConfig,
+                                      ElasticTrainer, FTConfig, TrainConfig)
+    import shutil
+    import tempfile
+    # the trainer and the launcher raise before they create this directory
+    ckpt_dir = str(Path(tempfile.gettempdir()) / "not_created")
+
+    def restore():
+        d = tempfile.mkdtemp()
+        try:
+            mgr = CheckpointManager(d)
+            mgr.save(1, {"w": np.zeros(2)}, blocking=True)
+            return mgr.restore(like={"w": np.zeros(2)})
+        finally:
+            shutil.rmtree(d)
+    train_cfg = cfg.scaled(attention_impl="reference")
     return {
+        "ElasticTrainer": lambda: ElasticTrainer(
+            train_cfg, TrainConfig(), DataConfig(1, 8),
+            FTConfig(checkpoint_dir=ckpt_dir)),
+        "CheckpointManager.restore": restore,
+        "python -m repro_torch.launch.train": lambda: train_main(
+            ["--arch", "qwen2_7b", "--smoke", "--steps", "1",
+             "--ckpt-dir", ckpt_dir]),
         "FleetController": lambda: FleetController(
             fleet=FleetConfig(capacity=2)),
         "FleetAPI": lambda: FleetAPI(fleet=FleetConfig(capacity=2)),
@@ -180,7 +208,9 @@ def _builders():
      "GPBank.fit", "batched_posterior", "ModelBank", "DemeterController",
      "ServingEngine", "init_params", "calibrate",
      "launch.serve.run_engine", "FleetController", "FleetAPI", "run_soak",
-     "python -m repro_torch.fleet", "python -m repro_torch.fleet.loadgen"]))
+     "python -m repro_torch.fleet", "python -m repro_torch.fleet.loadgen",
+     "ElasticTrainer", "CheckpointManager.restore",
+     "python -m repro_torch.launch.train"]))
 def test_entry_points_default_to_the_card(entry):
     import torch
     if torch.cuda.is_available():
