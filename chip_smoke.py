@@ -188,7 +188,22 @@ Phases, each of which exits non-zero on failure:
     step's device idle share and the step's bound;
 29. training, card against CPU: the trainer on the smoke config in
     float32 (TF32 off), 4 steps from the same parameters; losses, grad
-    norms and final parameters within 1e-5.
+    norms and final parameters within 1e-5;
+30. contracts on the card: ``scripts/check_contracts_torch.py`` over the
+    five registries with ``device="cuda"``: every launch budget holds, no
+    probe syncs with the host (also under
+    ``torch.cuda.set_sync_debug_mode("error")``), K2's ``fused_interval``,
+    K1's ``arima_chunk`` and ``gp_lbfgs`` are captured in a CUDA graph and
+    replayed bit-equal, the seeded violation breaks ``forbid_host_sync``,
+    ``dtype_ceiling`` and ``in_place``; each probe's time is printed;
+31. the scenario mesh on this machine: ``EngineConfig(devices=1)`` runs a
+    small baseline grid equal to the default config bit for bit; a mesh of
+    ``torch.cuda.device_count() + 1`` cards and ``sim_backend="sharded"``
+    on one card raise with the port's hint; the sharded engine over 4 CPU
+    host partitions (``REPRO_TORCH_HOST_DEVICES=4``) equals the batched
+    engine at rtol 1e-9; with 2 cards or more, the fused engine and a
+    Demeter grid over 2 cards equal 1 card bit for bit, else the phase
+    prints that this leg did not run.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
@@ -3459,6 +3474,162 @@ def training_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# contracts and the scenario mesh
+# ---------------------------------------------------------------------------
+
+#: the probes whose CUDA-graph replay phase 30 requires: K2's interval, K1's
+#: chunk and the GP fit kernel
+GRAPH_PROBES = ("engine:fused", "forecast backend:bank", "kernel:gp-lbfgs")
+#: the fields the seeded violation must break
+SEEDED_FIELDS = {"forbid_host_sync", "dtype_ceiling", "in_place"}
+
+
+def contracts_phase(device: str = "cuda") -> dict:
+    """Phase 30: ``scripts/check_contracts_torch.py`` over the five
+    registries on ``device``: every contract holds (launch budgets, no host
+    sync, on the card also under the sync debug mode), the graph probes
+    replay bit-equal from a CUDA graph on the card, and the seeded
+    violation is red. Each probe's time is printed."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import check_contracts_torch as cc
+    from repro_torch.analysis.contracts import run_probe
+    from repro_torch.core.registry import SIM_ENGINES
+
+    reports = cc.check_all(device, out=lambda line: print(
+        f"contract {line}", flush=True))
+    bad = [r.summary() for r in reports if not r.ok]
+    if bad:
+        fail("contracts: " + " | ".join(bad))
+    by_name = {r.name: r for r in reports}
+    for name in GRAPH_PROBES:
+        r = by_name[name]
+        if device == "cuda" and r.skipped:
+            fail(f"contract {name} skipped {r.skipped} on the card")
+    cc.seed_violation()
+    try:
+        seeded = [run_probe(p) for p in [SIM_ENGINES.contract_for(
+            "seeded-violation")(device)]][0]
+    finally:
+        SIM_ENGINES.unregister("seeded-violation")
+    fields = {v.field for v in seeded.violations}
+    if seeded.ok or fields != SEEDED_FIELDS:
+        fail(f"the seeded violation broke {sorted(fields)}, not "
+             f"{sorted(SEEDED_FIELDS)}")
+    out = {"device": device, "contracts": len(reports),
+           "seconds": {r.name: r.seconds for r in reports},
+           "launches": {r.name: r.launches for r in reports if r.launches},
+           "graph_replayed": [n for n in GRAPH_PROBES
+                              if not by_name[n].skipped],
+           "seeded_fields": sorted(fields)}
+    print("contracts " + json.dumps(out), flush=True)
+    return out
+
+
+def mesh_grid():
+    """Phase 31's grid: 2 traces x static/reactive, 15 minutes, a failure
+    every 7 minutes (the reference's uniform differential case)."""
+    from repro_torch.dsp import PeriodicFailures, make_trace, scenario_grid
+    traces = [make_trace(k, duration_s=900.0, dt_s=5.0)
+              for k in ("diurnal", "flash")]
+    return scenario_grid(traces, ("static", "reactive"), (0, 1),
+                         failures=PeriodicFailures(420.0))
+
+
+def same_scenarios(a, b) -> bool:
+    """Every scenario's arrays bit for bit equal, and its decisions and
+    failure records."""
+    import numpy as np
+    arrays = ("times", "rates", "latencies", "usage_cpu", "usage_mem_mb",
+              "workers", "consumer_lag")
+    return len(a.scenarios) == len(b.scenarios) and all(
+        sa.name == sb.name
+        and all(np.array_equal(getattr(sa, f), getattr(sb, f),
+                               equal_nan=True) for f in arrays)
+        and json.dumps(sa.summary(), sort_keys=True)
+        == json.dumps(sb.summary(), sort_keys=True)
+        for sa, sb in zip(a.scenarios, b.scenarios))
+
+
+def mesh_phase(device: str = "cuda") -> dict:
+    """Phase 31: the scenario mesh on this machine. ``devices=1`` equals
+    the default config bit for bit on ``device``; a mesh wider than the
+    visible cards and the sharded engine on one card raise with the port's
+    hint; the sharded engine over 4 CPU host partitions equals the batched
+    engine at rtol 1e-9; with two cards or more, the fused engine and a
+    Demeter grid over 2 cards equal 1 card bit for bit."""
+    import os
+
+    import torch
+    from repro_torch.core import EngineConfig
+    from repro_torch.distributed.mesh import HOST_DEVICES_ENV
+    from repro_torch.dsp import SweepEngine, run_sweep
+
+    specs = mesh_grid()
+    base = EngineConfig(device=device)
+    default = run_sweep(specs, config=base)
+    one = run_sweep(specs, config=base.replace(devices=1))
+    if not same_scenarios(one, default):
+        fail("devices=1 differs from the default config")
+    out = {"device": device, "scenarios": len(specs),
+           "devices_1_equal": True}
+
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    if device == "cuda":
+        for bad in (dict(devices=cards + 1),
+                    dict(sim_backend="sharded") if cards == 1 else None):
+            if bad is None:
+                continue
+            try:
+                EngineConfig(device="cuda", **bad)
+            except ValueError as e:
+                if "torch.cuda.device_count()" not in str(e):
+                    fail(f"EngineConfig({bad}) raised without the hint: {e}")
+                print(f"mesh: EngineConfig({bad}) raises: {e}", flush=True)
+            else:
+                fail(f"EngineConfig({bad}) accepted on {cards} card(s)")
+
+    saved = os.environ.get(HOST_DEVICES_ENV)
+    os.environ[HOST_DEVICES_ENV] = "4"
+    try:
+        cpu = EngineConfig(device="cpu")
+        batched = run_sweep(specs, config=cpu.replace(sim_backend="batched"))
+        eng = SweepEngine(specs, config=cpu.replace(sim_backend="sharded"))
+        sharded = eng.run()
+    finally:
+        if saved is None:
+            os.environ.pop(HOST_DEVICES_ENV, None)
+        else:
+            os.environ[HOST_DEVICES_ENV] = saved
+    if eng.executor.n_devices != 4:
+        fail(f"the sharded engine spanned {eng.executor.n_devices} host "
+             f"partitions, not 4")
+    bad = [a.name for a, b in zip(sharded.scenarios, batched.scenarios)
+           if not a.allclose(b, rtol=1e-9)]
+    if bad:
+        fail(f"sharded over 4 host partitions differs from batched: {bad}")
+    out["sharded_host_partitions"] = 4
+
+    if device == "cuda" and cards >= 2:
+        two = run_sweep(specs, config=base.replace(devices=2))
+        if not same_scenarios(two, one):
+            fail("the fused engine over 2 cards differs from 1 card")
+        gspecs, gconfig = demeter_grid()
+        gconfig = gconfig.replace(fit_backend="bank", device="cuda")
+        grids = {d: run_sweep(gspecs, config=gconfig.replace(devices=d))
+                 for d in (1, 2)}
+        if not same_scenarios(grids[2], grids[1]):
+            fail("the Demeter grid over 2 cards differs from 1 card")
+        out["two_cards"] = "ran: fused and Demeter equal to one card"
+    else:
+        out["two_cards"] = (f"did not run: this machine shows {cards} CUDA "
+                            f"device(s), the leg needs 2")
+        print(f"mesh: the 2-card leg did not run: this machine shows "
+              f"{cards} CUDA device(s)", flush=True)
+    print("mesh " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3826,6 +3997,20 @@ def main() -> int:
     t_phase = time.perf_counter()
     training_card_vs_cpu()
     print(f"phase 29 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- 30. contracts on the card -------------------------------------------
+    # (the probes launch the per-tick kernels; the kernels line takes every
+    # count from the main-path phases above, never the global counters)
+    t_phase = time.perf_counter()
+    contracts_phase()
+    print(f"phase 30 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- 31. the scenario mesh on this machine --------------------------------
+    t_phase = time.perf_counter()
+    mesh_phase()
+    print(f"phase 31 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t_phase:.1f} s)")
 
     # -- summary lines: each kernel's launches on its main path and its

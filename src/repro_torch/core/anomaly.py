@@ -117,6 +117,22 @@ class BankedDetectorSet:
         return int(self.bank.observe(vals).sum())
 
 
+def _bank_detector_probe(device: str = "cuda"):
+    from .forecast_bank import detector_contract_probe   # lazy: a cycle
+    return detector_contract_probe(device)
+
+
+def _scalar_detector_probe(device: str = "cuda"):
+    from ..analysis.contracts import host_probe
+    return host_probe("detector backend:scalar",
+                      "per-metric float64 NumPy detectors on the host — the "
+                      "reference oracle, no device call")
+
+
+DETECTOR_BACKENDS.attach_contract("bank", _bank_detector_probe)
+DETECTOR_BACKENDS.attach_contract("scalar", _scalar_detector_probe)
+
+
 @dataclass
 class RecoveryTracker:
     """Tracks the anomalous-state span across several metric detectors.

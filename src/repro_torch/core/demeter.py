@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .. import obs
 from .acquisition import ehvi_2d, hypervolume_2d, select_profiling_batch
@@ -75,26 +76,86 @@ FIT_MAX_ITER = 60
 
 
 #: The registered fit backends share one signature:
-#: ``fitter(datasets, seeds, device) -> list[GP]`` where ``datasets`` is a
-#: sequence of ``(x, y)`` training pairs, ``seeds`` the per-model restart
-#: seeds and ``device`` where a batched fitter places its tensors.
+#: ``fitter(datasets, seeds, device, devices=None) -> list[GP]`` where
+#: ``datasets`` is a sequence of ``(x, y)`` training pairs, ``seeds`` the
+#: per-model restart seeds, ``device`` where a batched fitter places its
+#: tensors and ``devices`` an optional scenario-mesh width (only passed when
+#: a caller sets it, so third-party fitters without the kwarg keep working
+#: on one device).
 
 @FIT_BACKENDS.register("scalar")
 def _fit_scalar(datasets: Sequence[Tuple[np.ndarray, np.ndarray]],
-                seeds: Sequence[int], device: str = "cuda") -> List[GP]:
+                seeds: Sequence[int], device: str = "cuda",
+                devices: Optional[int] = None) -> List[GP]:
     """Per-GP scipy L-BFGS-B loop on the host (the reference oracle;
-    ``device`` has nothing to act on here)."""
+    ``device`` and ``devices`` have nothing to act on here)."""
     return [GP.fit(x, y, restarts=FIT_RESTARTS, max_iter=FIT_MAX_ITER, seed=s)
             for (x, y), s in zip(datasets, seeds)]
 
 
 @FIT_BACKENDS.register("bank")
 def _fit_bank(datasets: Sequence[Tuple[np.ndarray, np.ndarray]],
-              seeds: Sequence[int], device: str = "cuda") -> List[GP]:
-    """Every dataset in one batched GPBank L-BFGS on ``device``."""
+              seeds: Sequence[int], device: str = "cuda",
+              devices: Optional[int] = None) -> List[GP]:
+    """Every dataset in one batched GPBank L-BFGS on ``device``, optionally
+    split over a ``devices``-wide scenario mesh."""
     bank = GPBank.fit(list(datasets), restarts=FIT_RESTARTS,
-                      max_iter=FIT_MAX_ITER, seeds=list(seeds), device=device)
+                      max_iter=FIT_MAX_ITER, seeds=list(seeds), device=device,
+                      devices=devices)
     return [bank.member(i) for i in range(len(datasets))]
+
+
+def _fit_bank_probe(device: str = "cuda"):
+    """Contracts for the bank fitter: its call (``_fit_packed``: one
+    ``gp_lbfgs`` launch per fit, float32 throughout, no host sync) and the
+    fit kernel alone, which also replays from a CUDA graph. The graph
+    check stays on the kernel: ``_fit_packed`` also runs autograd for the
+    objective at each restart's optimum."""
+    from ..analysis.contracts import (COLLECTIVE_OPS, CompilationContract,
+                                      ContractProbe)
+    from ..kernels import ops
+    from .gp_bank import _fit_packed
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    B, n, d = 2, 6, 3
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.as_tensor(rng.random((B, n, d)), **f32)
+    y = torch.as_tensor(rng.standard_normal((B, n)), **f32)
+    mask = torch.ones((B, n), **f32)
+    t0s = torch.as_tensor(
+        rng.standard_normal((B, FIT_RESTARTS, d + 2)) * 0.1, **f32)
+    fit = ContractProbe(
+        contract=CompilationContract(
+            name="fit backend:bank", forbidden_ops=COLLECTIVE_OPS,
+            launches={"gp_lbfgs": 1}, dtype_ceiling="float32",
+            forbid_host_sync=True,
+            note="batched multi-restart L-BFGS over the packed GP batch: "
+                 "one gp_lbfgs launch, float32, no host sync"),
+        fn=_fit_packed, args=(x, y, mask, t0s), kwargs={"max_iter": 8},
+        device=device)
+    kernel = ContractProbe(
+        contract=CompilationContract(
+            name="kernel:gp-lbfgs", forbidden_ops=COLLECTIVE_OPS,
+            launches={"gp_lbfgs": 1}, dtype_ceiling="float32",
+            forbid_host_sync=True, graph_capturable=True,
+            note="the GP fit kernel: a CTA per (member, restart) row runs "
+                 "the whole L-BFGS"),
+        fn=ops.gp_lbfgs,
+        args=(x, y, mask, t0s.reshape(B * FIT_RESTARTS, d + 2)),
+        kwargs={"restarts": FIT_RESTARTS, "max_iter": 8}, device=device)
+    return [fit, kernel]
+
+
+def _fit_scalar_probe(device: str = "cuda"):
+    from ..analysis.contracts import host_probe
+    return host_probe("fit backend:scalar",
+                      "per-GP scipy L-BFGS-B on the host — the reference "
+                      "oracle, no device call")
+
+
+FIT_BACKENDS.attach_contract("bank", _fit_bank_probe)
+FIT_BACKENDS.attach_contract("scalar", _fit_scalar_probe)
 
 
 @dataclass
@@ -127,6 +188,9 @@ class ModelBank:
     refit_growth: float = 0.10           # refit when data grew >= 10 %
     fit_backend: str = "bank"            # "bank" | "scalar"
     device: str = "cuda"
+    #: scenario-mesh width for batched fits and posteriors
+    #: (EngineConfig.devices); None keeps them on ``device``
+    fit_devices: Optional[int] = None
     fit_wall_s: float = 0.0
     n_fits: int = 0
     _gps: Dict[Tuple[int, str], Tuple[int, int, Optional[GP]]] = field(
@@ -173,7 +237,9 @@ class ModelBank:
         x, y = payload
         t0 = time.perf_counter()
         fitter = FIT_BACKENDS.get(self.fit_backend)
-        g = fitter([(x, y)], [self._seed(segment, metric)], self.device)[0]
+        kw = {"devices": self.fit_devices} if self.fit_devices else {}
+        g = fitter([(x, y)], [self._seed(segment, metric)], self.device,
+                   **kw)[0]
         self.fit_wall_s += time.perf_counter() - t0
         self.n_fits += 1
         self._install(segment, metric, len(y), g)
@@ -221,17 +287,18 @@ class ModelBank:
         if not jobs:
             return 0, time.perf_counter() - t0
 
-        # One fitter call per (backend, device) group: banks on different
-        # devices must not be merged.
-        by_backend: Dict[Tuple[str, str], List] = {}
+        # One fitter call per (backend, device, mesh width) group: banks on
+        # different devices or layouts must not be merged.
+        by_backend: Dict[Tuple[str, str, Optional[int]], List] = {}
         for job in jobs:
-            key = (job[0].fit_backend, job[0].device)
+            key = (job[0].fit_backend, job[0].device, job[0].fit_devices)
             by_backend.setdefault(key, []).append(job)
-        for (backend, device), group in by_backend.items():
+        for (backend, device, devices), group in by_backend.items():
             fitter = FIT_BACKENDS.get(backend)
+            kw = {"devices": devices} if devices else {}
             gps = fitter([(x, y) for _, _, _, x, y in group],
                          [b._seed(seg, metric)
-                          for b, seg, metric, _, _ in group], device)
+                          for b, seg, metric, _, _ in group], device, **kw)
             for (b, seg, metric, _x, y), g in zip(group, gps):
                 b._install(seg, metric, len(y), g)
         return len(jobs), time.perf_counter() - t0
@@ -252,7 +319,7 @@ class ModelBank:
                 break
         return build_rgpe(target_gp, tx, ty, base,
                           seed=segment.index * 7919 + _metric_salt(metric),
-                          device=self.device)
+                          device=self.device, devices=self.fit_devices)
 
 
 @dataclass
@@ -314,7 +381,8 @@ class DemeterController:
                                        device=config.device)
         self.store = SegmentStore(self.hp.segment_size)
         self.bank = ModelBank(self.store, fit_backend=config.fit_backend,
-                              device=config.device)
+                              device=config.device,
+                              fit_devices=config.devices)
         self._candidates = self.space.matrix()
         self._configs = self.space.enumerate()
         if self.alloc is not None:

@@ -273,6 +273,14 @@ class EngineConfig:
     hp: Optional["DemeterHyperParams"] = None
     #: Baseline-controller decision cadence (seconds).
     decision_interval_s: float = 60.0
+    #: Width of the ``scenario`` mesh: over how many devices of
+    #: ``device``'s kind the sharded and fused engines and the GP and
+    #: forecast banks partition the scenario axis. ``None`` is every
+    #: visible device for ``sim_backend="sharded"``/``"fused"`` and one
+    #: device for the banks. Validated against the visible count at
+    #: construction: the cards for ``"cuda"``, ``REPRO_TORCH_HOST_DEVICES``
+    #: host partitions for ``"cpu"``.
+    devices: Optional[int] = None
     #: Fleet-controller job backend: "sim" (sim jobs) or "serving" (the
     #: serving executor). Only :class:`repro_torch.fleet.FleetController`
     #: reads it.
@@ -292,6 +300,38 @@ class EngineConfig:
         if not self.decision_interval_s > 0:
             raise ValueError(f"decision_interval_s must be positive, got "
                              f"{self.decision_interval_s!r}")
+        self._validate_devices()
+
+    def _validate_devices(self) -> None:
+        """One error surface for device placement, at construction.
+
+        Without it, a bad ``devices`` (or ``sim_backend="sharded"`` with
+        one device) would only surface when the sweep engine builds its
+        mesh.
+        """
+        if self.devices is not None and (
+                not isinstance(self.devices, int)
+                or isinstance(self.devices, bool) or self.devices < 1):
+            raise ValueError(f"devices must be a positive int or None, "
+                             f"got {self.devices!r}")
+        if self.devices is None and self.sim_backend != "sharded":
+            return                       # nothing touches a mesh; stay lazy
+        from ..distributed.mesh import device_count_hint, visible_device_count
+        kind = torch.device(self.device).type
+        visible = visible_device_count(kind)
+        if self.devices is not None and self.devices > visible:
+            raise ValueError(
+                f"devices={self.devices} requested but only {visible} "
+                f"{kind} device(s) visible; {device_count_hint(kind)}")
+        width = self.devices if self.devices is not None else visible
+        if self.sim_backend == "sharded" and width < 2:
+            cause = (f"devices={self.devices} was requested"
+                     if self.devices is not None
+                     else f"only {visible} {kind} device(s) are visible")
+            raise ValueError(
+                f"sim_backend 'sharded' needs at least 2 devices to shard "
+                f"the scenario axis, but {cause}; {device_count_hint(kind)}, "
+                f"or use sim_backend='fused' (it runs on one device too)")
 
     def resolved_hp(self) -> "DemeterHyperParams":
         """``hp``, or the paper §3.2 defaults when unset."""

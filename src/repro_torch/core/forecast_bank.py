@@ -58,8 +58,11 @@ def _ring_push(ring: torch.Tensor, n: torch.Tensor, value: torch.Tensor,
                do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write ``value`` into each row's next ring slot where ``do``."""
     width = ring.shape[1]
-    oh = F.one_hot(n % width, width).to(ring.dtype) \
-        * do[:, None].to(ring.dtype)
+    # a one-hot of the slot by comparison: F.one_hot reads the indices'
+    # range back to the host on the CPU
+    slot = torch.arange(width, device=ring.device)[None, :] \
+        == (n % width)[:, None]
+    oh = slot.to(ring.dtype) * do[:, None].to(ring.dtype)
     return ring * (1.0 - oh) + oh * value[:, None], n + do.to(n.dtype)
 
 
@@ -290,30 +293,29 @@ def _track_k1(site: str) -> None:
     obs.track_launches(_k1.arima_chunk)
 
 
-class _FamilyBank:
-    """Shared staging / flush / read plumbing for one forecaster family.
+class _FamilyPart:
+    """One forecaster family's state for a contiguous block of its members
+    on one device.
 
-    Updates are write-behind batched in *time* as well as across streams:
-    ``stage`` appends to a per-stream queue and ``flush`` replays the whole
-    queued chunk in one pass. Under the sweep cadences (ingest every metric
-    interval, forecasts read every optimization/profiling interval) that is
-    ~10 ticks per pass on top of the cross-stream batching.
+    The family-specific subclasses build the state and replay a chunk or
+    roll out on it; :class:`_FamilyBank` stages the ticks and drives its
+    partitions. ``layout`` is the rows the padded widths (AR order,
+    differencing depth, season) are sized for: the whole family's, so that
+    every partition of a family shares one layout.
     """
 
     kind = ""
 
-    def __init__(self, rows: Sequence[dict], device: torch.device):
+    def __init__(self, rows: Sequence[dict], device: torch.device,
+                 layout: Optional[Sequence[dict]] = None):
         self.n = len(rows)
         self.device = device
-        # Per-stream staging queues (plain lists: appends are the per-tick
-        # hot path; the chunk tensor is only built per flush).
-        self._q: List[List[float]] = [[] for _ in range(self.n)]
+        self.layout = list(layout if layout is not None else rows)
         self.state, self.params = self._build(list(rows))
         self._state0 = type(self.state)(*(t.clone() for t in self.state))
         self._after_params()
-        #: ticks replayed through chunks (padding ticks included)
-        self.ticks_replayed = 0
-        #: chunks replayed (one per flush that found staged ticks)
+        #: chunks replayed on this partition (one arima_chunk call each for
+        #: the ARIMA family)
         self.chunks_replayed = 0
 
     def _t(self, a, dtype=_F64) -> torch.Tensor:
@@ -340,72 +342,27 @@ class _FamilyBank:
         raise NotImplementedError
 
     # shared
-    def stage(self, i: int, value: float) -> None:
-        self._q[i].append(value)
-
-    def queue_full(self, i: int) -> bool:
-        return len(self._q[i]) >= _QUEUE_CAP
-
-    @property
-    def has_staged(self) -> bool:
-        return any(self._q)
-
-    def _take_chunk(self) -> Tuple[int, np.ndarray]:
-        """Drain the queues into a (T, B) chunk array.
-
-        The chunk length is bucketed as the reference buckets it (exact
-        below 4, multiples of 4 beyond); padding ticks are all-NaN, a no-op
-        for every family."""
-        qs = self._q
-        n = sum(len(q) for q in qs)
-        t_max = max(len(q) for q in qs)
-        tb = t_max if t_max <= 4 else -(-t_max // 4) * 4
-        vals = np.full((tb, self.n), np.nan)
-        for i, q in enumerate(qs):
-            if q:
-                vals[:len(q), i] = q
-        self._q = [[] for _ in range(self.n)]
-        return n, vals
-
     def _apply(self, vals: np.ndarray) -> None:
         """Replay a chunk; the state tensors are updated in place."""
         new = self._step_chunk(self._t(vals))
         for buf, src in zip(self.state, new):
             if src is not buf:
                 buf.copy_(src)
-        self.ticks_replayed += vals.shape[0]
         self.chunks_replayed += 1
 
-    def flush(self) -> int:
-        if not any(self._q):
-            return 0
-        n, vals = self._take_chunk()
-        self._apply(vals)
-        return n
-
-    def flush_and_roll(self, steps: int) -> Tuple[int, np.ndarray]:
-        """Apply the queued chunk and roll out in one pass."""
-        n = self.flush()
-        return n, self.rollout(steps)
-
-    def rollout(self, steps: int) -> np.ndarray:
-        return self._roll(steps).cpu().numpy()
-
     def reset_rows(self, idx: Sequence[int]) -> None:
-        """Return streams ``idx`` to their just-constructed state (the
-        parameters are untouched) and drop their staging queues."""
+        """Return members ``idx`` (of this partition) to their
+        just-constructed state; the parameters are untouched."""
         if len(idx) == 0:
             return
         rows = torch.as_tensor(sorted(int(i) for i in idx), device=self.device)
         for cur, init in zip(self.state, self._state0):
             cur[rows] = init[rows]
-        for i in rows.tolist():
-            self._q[i] = []
 
     def load_state(self, state: Sequence[torch.Tensor],
                    params: Sequence[torch.Tensor]) -> None:
         """Overwrite state and params in place (shapes and dtypes must
-        match; see :func:`repro_torch.interop.forecast_family_from_arrays`)."""
+        match)."""
         for group, new in ((self.state, state), (self.params, params)):
             for name, buf, src in zip(group._fields, group, new):
                 if src.shape != buf.shape or src.dtype != buf.dtype:
@@ -428,7 +385,7 @@ class _FamilyBank:
         return float(np.std(self.state.err[i, :c].cpu().numpy()))
 
 
-class _ArimaBank(_FamilyBank):
+class _ArimaBank(_FamilyPart):
     kind = "arima"
 
     def _build(self, rows: List[dict]):
@@ -436,8 +393,9 @@ class _ArimaBank(_FamilyBank):
         d = np.array([r.get("d", 1) for r in rows], np.int64)
         lam = np.array([r.get("forgetting", 0.995) for r in rows], float)
         ridge = np.array([r.get("ridge", 10.0) for r in rows], float)
-        p_max = bucket_pow2(int(p.max()), minimum=4)
-        d_max = max(int(d.max()), 1)
+        p_max = bucket_pow2(max(r.get("p", 8) for r in self.layout),
+                            minimum=4)
+        d_max = max(max(r.get("d", 1) for r in self.layout), 1)
         k = p_max + 1
         B = self.n
         z = lambda *shape: torch.zeros(shape, dtype=_F64,  # noqa: E731
@@ -463,7 +421,7 @@ class _ArimaBank(_FamilyBank):
         return _arima_roll(self.state, self.params, self.const, steps)
 
 
-class _HoltBank(_FamilyBank):
+class _HoltBank(_FamilyPart):
     kind = "holt"
 
     def _build(self, rows: List[dict]):
@@ -471,7 +429,8 @@ class _HoltBank(_FamilyBank):
         beta = np.array([r.get("beta", 0.1) for r in rows], float)
         gamma = np.array([r.get("gamma", 0.1) for r in rows], float)
         season = np.array([r.get("season", 0) for r in rows], np.int64)
-        m_max = bucket_pow2(max(int(season.max()), 1), minimum=1)
+        m_max = bucket_pow2(max(max(r.get("season", 0) for r in self.layout),
+                                1), minimum=1)
         B = self.n
         z = lambda *shape: torch.zeros(shape, dtype=_F64,  # noqa: E731
                                        device=self.device)
@@ -490,14 +449,15 @@ class _HoltBank(_FamilyBank):
         return _holt_roll(self.state, self.params, steps)
 
 
-class _SNaiveBank(_FamilyBank):
+class _SNaiveBank(_FamilyPart):
     kind = "seasonal"
 
     def _build(self, rows: List[dict]):
         season = np.array([r.get("season", 12) for r in rows], np.int64)
         if (season < 1).any():
             raise ValueError("SeasonalNaive needs season >= 1")
-        m_max = bucket_pow2(int(season.max()), minimum=1)
+        m_max = bucket_pow2(max(r.get("season", 12) for r in self.layout),
+                            minimum=1)
         B = self.n
         z = lambda *shape: torch.zeros(shape, dtype=_F64,  # noqa: E731
                                        device=self.device)
@@ -515,6 +475,144 @@ class _SNaiveBank(_FamilyBank):
 
 _FAMILY_BANKS = {"arima": _ArimaBank, "holt": _HoltBank,
                  "seasonal": _SNaiveBank}
+
+
+class _FamilyBank:
+    """One forecaster family: the staging queues and the batched flush over
+    its partitions.
+
+    Updates are write-behind batched in *time* as well as across streams:
+    ``stage`` appends to a per-stream queue and ``flush`` replays the whole
+    queued chunk in one pass. Under the sweep cadences (ingest every metric
+    interval, forecasts read every optimization/profiling interval) that is
+    ~10 ticks per pass on top of the cross-stream batching.
+
+    The members are split over the devices of ``mesh`` (one device unless
+    ``ForecastBank(devices=)`` asks for more): each partition is a
+    ``cls`` (:class:`_FamilyPart`) of a contiguous block of members on its
+    own device. A flush drains one chunk for the whole family and replays
+    each partition's columns on its device: one
+    :func:`~repro_torch.kernels.ops.arima_chunk` call per partition for the
+    ARIMA family. Streams are independent, so the partitions never
+    communicate and the members' states equal the one-device bank's.
+    """
+
+    def __init__(self, cls: type, rows: Sequence[dict],
+                 mesh: Sequence[torch.device]):
+        from ..distributed.mesh import partition_bounds
+        rows = list(rows)
+        self.kind = cls.kind
+        self.n = len(rows)
+        self.bounds = [r for r in partition_bounds(self.n, len(mesh))
+                       if len(r)]
+        self.parts: List[_FamilyPart] = [
+            cls(rows[r.start:r.stop], dev, layout=rows)
+            for r, dev in zip(self.bounds, mesh)]
+        self.device = self.parts[0].device
+        # Per-stream staging queues (plain lists: appends are the per-tick
+        # hot path; the chunk tensor is only built per flush).
+        self._q: List[List[float]] = [[] for _ in range(self.n)]
+        #: ticks replayed through chunks (padding ticks included)
+        self.ticks_replayed = 0
+        #: chunks replayed (one per flush that found staged ticks)
+        self.chunks_replayed = 0
+
+    def _locate(self, i: int) -> Tuple[_FamilyPart, int]:
+        for r, part in zip(self.bounds, self.parts):
+            if i < r.stop:
+                return part, i - r.start
+        raise IndexError(f"member {i} of a family of {self.n}")
+
+    @property
+    def state(self):
+        """The members' state: the live tensors with one partition, else a
+        copy gathered on the first partition's device."""
+        return self._gather("state")
+
+    @property
+    def params(self):
+        return self._gather("params")
+
+    def _gather(self, attr: str):
+        groups = [getattr(p, attr) for p in self.parts]
+        if len(groups) == 1:
+            return groups[0]
+        return type(groups[0])(*(torch.cat([t.to(self.device) for t in ts])
+                                 for ts in zip(*groups)))
+
+    def stage(self, i: int, value: float) -> None:
+        self._q[i].append(value)
+
+    def queue_full(self, i: int) -> bool:
+        return len(self._q[i]) >= _QUEUE_CAP
+
+    @property
+    def has_staged(self) -> bool:
+        return any(self._q)
+
+    def flush(self) -> int:
+        """Drain the queues into one (T, B) chunk and replay each
+        partition's columns of it; returns the staged ticks applied.
+
+        The chunk length is bucketed as the reference buckets it (exact
+        below 4, multiples of 4 beyond); padding ticks are all-NaN, a no-op
+        for every family."""
+        qs = self._q
+        if not any(qs):
+            return 0
+        n = sum(len(q) for q in qs)
+        t_max = max(len(q) for q in qs)
+        tb = t_max if t_max <= 4 else -(-t_max // 4) * 4
+        vals = np.full((tb, self.n), np.nan)
+        for i, q in enumerate(qs):
+            if q:
+                vals[:len(q), i] = q
+        self._q = [[] for _ in range(self.n)]
+        for r, part in zip(self.bounds, self.parts):
+            part._apply(vals[:, r.start:r.stop])
+        self.ticks_replayed += tb
+        self.chunks_replayed += 1
+        return n
+
+    def flush_and_roll(self, steps: int) -> Tuple[int, np.ndarray]:
+        """Apply the queued chunk and roll out in one pass."""
+        n = self.flush()
+        return n, self.rollout(steps)
+
+    def rollout(self, steps: int) -> np.ndarray:
+        # every partition's rollout is dispatched before any is read back
+        rolls = [part._roll(steps) for part in self.parts]
+        return np.concatenate([r.cpu().numpy() for r in rolls])
+
+    def reset_rows(self, idx: Sequence[int]) -> None:
+        """Return streams ``idx`` to their just-constructed state (the
+        parameters are untouched) and drop their staging queues."""
+        for r, part in zip(self.bounds, self.parts):
+            part.reset_rows([int(i) - r.start for i in idx
+                             if r.start <= i < r.stop])
+        for i in idx:
+            self._q[int(i)] = []
+
+    def load_state(self, state: Sequence[torch.Tensor],
+                   params: Sequence[torch.Tensor]) -> None:
+        """Overwrite every member's state and params in place, one row per
+        member (see :func:`repro_torch.interop.forecast_family_from_arrays`)."""
+        for r, part in zip(self.bounds, self.parts):
+            part.load_state([t[r.start:r.stop].to(part.device) for t in state],
+                            [t[r.start:r.stop].to(part.device)
+                             for t in params])
+
+    def n_observed(self, i: int) -> int:
+        part, j = self._locate(i)
+        return part.n_observed(j)
+
+    def last(self, i: int) -> float:
+        part, j = self._locate(i)
+        return part.last(j)
+
+    def residual_std(self, i: int) -> float:
+        part, j = self._locate(i)
+        return part.residual_std(j)
 
 
 # ---------------------------------------------------------------------------
@@ -577,12 +675,17 @@ class ForecastBank:
     one tick cost one pass, not N.
 
     ``device`` defaults to ``"cuda"`` and raises where there is no card;
-    pass ``device="cpu"`` to run on the CPU.
+    pass ``device="cpu"`` to run on the CPU. ``devices`` splits each
+    family's streams over that many devices of ``device``'s kind (a
+    scenario mesh): one call per partition and flush, on its device, with
+    the same results as one device. ``None`` or 1 keeps them on
+    ``device``.
     """
 
     def __init__(self, kinds: Sequence[str],
                  params: Optional[Sequence[dict]] = None,
-                 horizon: int = 10, device: str = "cuda"):
+                 horizon: int = 10, device: str = "cuda",
+                 devices: Optional[int] = None):
         if not kinds:
             raise ValueError("ForecastBank needs at least one stream")
         params = list(params) if params is not None else [{}] * len(kinds)
@@ -594,6 +697,12 @@ class ForecastBank:
                                  f"available: {FORECASTER_KINDS}")
         self.device = resolve_device(device)
         self.horizon = int(horizon)
+        mesh = [self.device]
+        if devices is not None and devices > 1:
+            from ..distributed.mesh import scenario_mesh
+            mesh = scenario_mesh(devices, self.device)
+        #: devices the streams are split over (1: all on ``device``)
+        self.n_devices = len(mesh)
         grouped: Dict[str, List[Tuple[int, dict]]] = {}
         for row, (kind, kw) in enumerate(zip(kinds, params)):
             grouped.setdefault(kind, []).append(
@@ -603,8 +712,8 @@ class ForecastBank:
         for kind, members in grouped.items():
             for i, (row, _) in enumerate(members):
                 self._rows[row] = (kind, i)
-            self._fams[kind] = _FAMILY_BANKS[kind](
-                [kw for _, kw in members], self.device)
+            self._fams[kind] = _FamilyBank(
+                _FAMILY_BANKS[kind], [kw for _, kw in members], mesh)
         self._cache: Dict[object, np.ndarray] = {}
         #: wall-clock spent in batched update / rollout passes
         self.update_wall_s = 0.0
@@ -614,8 +723,10 @@ class ForecastBank:
     @classmethod
     def from_kinds(cls, kinds: Sequence[str], *,
                    params: Optional[Sequence[dict]] = None,
-                   horizon: int = 10, device: str = "cuda") -> "ForecastBank":
-        return cls(kinds, params=params, horizon=horizon, device=device)
+                   horizon: int = 10, device: str = "cuda",
+                   devices: Optional[int] = None) -> "ForecastBank":
+        return cls(kinds, params=params, horizon=horizon, device=device,
+                   devices=devices)
 
     @property
     def n_streams(self) -> int:
@@ -629,7 +740,8 @@ class ForecastBank:
 
     @property
     def arima_chunks(self) -> int:
-        """Chunks the ARIMA family replayed (one arima_chunk call each)."""
+        """Chunks the ARIMA family replayed (one arima_chunk call per
+        partition each)."""
         fam = self._fams.get("arima")
         return fam.chunks_replayed if fam is not None else 0
 
@@ -778,6 +890,82 @@ def make_forecaster(kind: str = "arima", *, backend: str = "bank",
 
 
 # ---------------------------------------------------------------------------
+# contracts (see repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def _arima_chunk_args(fam: "_ArimaBank", T: int) -> Tuple:
+    """``_arima_chunk`` operands for a (T, B) chunk of ``fam``'s streams:
+    six real ticks per stream, the rest NaN padding."""
+    B = fam.n
+    vals = np.where(np.arange(T)[:, None] < 6,
+                    np.linspace(1.0, 4.0, T * B).reshape(T, B), np.nan)
+    return (fam.state, fam.params, fam.const,
+            torch.as_tensor(vals, dtype=_F64, device=fam.device))
+
+
+def _bank_forecaster_probes(device: str = "cuda"):
+    """Contracts for the forecast bank's flush and the K1 per-tick kernel.
+
+    * the ARIMA chunk replay (:func:`_arima_chunk`): one K1 launch per
+      flush, the state updated in place, float64 by design, no host sync,
+      one library load for every chunk length, replayable from a CUDA
+      graph;
+    * the per-tick K1 kernel (:func:`repro_torch.kernels.ops.
+      rls_rank1_update`), the Pallas kernel's direct counterpart.
+    """
+    from ..analysis.contracts import (COLLECTIVE_OPS, CompilationContract,
+                                      ContractProbe, count_loads)
+
+    dev = resolve_device(device)
+    fam = _ArimaBank([dict(p=4, d=1)] * 4, dev)
+    chunk_contract = CompilationContract(
+        name="forecast backend:bank",
+        forbidden_ops=COLLECTIVE_OPS,
+        launches={"arima_chunk": 1, "rls_rank1_update": 0},
+        # the RLS state and the sample count move at every replay (the
+        # lags and levels are rewritten in place too, to the same values
+        # when the same chunk is replayed)
+        in_place=("w", "P", "count"),
+        dtype_ceiling="float64",       # mirrors the float64 NumPy zoo
+        max_ops=32,
+        forbid_host_sync=True,
+        max_loads=1,                   # one library for every chunk length
+        graph_capturable=True,
+        note="ARIMA chunk replay: one K1 launch per flush, state updated in "
+             "place")
+    work = _ArimaBank([dict(p=4, d=1)] * 4, dev)
+    chunk_probe = ContractProbe(
+        contract=chunk_contract, fn=_arima_chunk,
+        args=_arima_chunk_args(fam, 8), state=fam.state._asdict(),
+        device=device,
+        loads=lambda: count_loads(_arima_chunk, [
+            (_arima_chunk_args(work, t), {}) for t in (4, 4, 8, 8, 12)]))
+    k = int(fam.state.w.shape[1])
+    f32 = dict(dtype=torch.float32, device=dev)
+    kernel_probe = ContractProbe(
+        contract=CompilationContract(
+            name="kernel:rls-rank1-update", forbidden_ops=COLLECTIVE_OPS,
+            launches={"rls_rank1_update": 1}, forbid_host_sync=True,
+            note="batched rank-1 RLS covariance update (K1)"),
+        fn=ops.rls_rank1_update,
+        args=(torch.eye(k, **f32).repeat(8, 1, 1), torch.ones((8, k), **f32),
+              torch.full((8,), 0.995, **f32)),
+        device=device)
+    return [chunk_probe, kernel_probe]
+
+
+def _scalar_forecaster_probe(device: str = "cuda"):
+    from ..analysis.contracts import host_probe
+    return host_probe("forecast backend:scalar",
+                      "float64 NumPy zoo member on the host — the reference "
+                      "oracle, no device call")
+
+
+FORECAST_BACKENDS.attach_contract("bank", _bank_forecaster_probes)
+FORECAST_BACKENDS.attach_contract("scalar", _scalar_forecaster_probe)
+
+
+# ---------------------------------------------------------------------------
 # DetectorBank: batched §2.3 anomaly detectors
 # ---------------------------------------------------------------------------
 
@@ -789,7 +977,9 @@ def _mad_threshold(ring: torch.Tensor, rn: torch.Tensor, k_sigma: float,
     cnt = torch.clamp(rn, max=E)
     validm = torch.arange(E, device=ring.device)[None, :] < cnt[:, None]
     c = torch.clamp(cnt, min=1)
-    inf = torch.tensor(float("inf"), dtype=ring.dtype, device=ring.device)
+    # a fill on the device: torch.tensor(inf, device=...) would copy from
+    # the host, a wait on the card at every sample
+    inf = torch.full((), float("inf"), dtype=ring.dtype, device=ring.device)
 
     def masked_median(x: torch.Tensor) -> torch.Tensor:
         s = torch.sort(torch.where(validm, x, inf), dim=1).values
@@ -927,3 +1117,36 @@ class DetectorBank:
             obs.inc("sweep.detector_samples")
             _track_k1("detector")
         return out
+
+
+def detector_contract_probe(device: str = "cuda"):
+    """The detector bank's ``observe`` call packaged for
+    :func:`repro_torch.analysis.contracts.run_probe` (attached to the
+    ``"bank"`` entry of ``DETECTOR_BACKENDS``): one K1 launch per sample
+    (the hottest anomaly path), the ARIMA state updated in place, float64
+    by design (flags agree with the scalar detector), no host sync."""
+    from ..analysis.contracts import (COLLECTIVE_OPS, CompilationContract,
+                                      ContractProbe)
+
+    db = DetectorBank(3, device=device)
+    # past the warm-up, so that every observe takes an RLS step
+    for t in range(16):
+        db.observe(1.0 + 0.1 * np.sin(t + np.arange(3)))
+    vals = torch.linspace(1.0, 2.0, db.b, dtype=_F64, device=db.device)
+    contract = CompilationContract(
+        name="detector backend:bank",
+        forbidden_ops=COLLECTIVE_OPS,
+        launches={"arima_chunk": 1},
+        in_place=("w", "P", "count"),
+        dtype_ceiling="float64",
+        # ~135 today: the one-step prediction, two masked medians and the
+        # ring push around the K1 call
+        max_ops=160,
+        forbid_host_sync=True,
+        note="batched one-step-error anomaly detectors (predict, MAD "
+             "threshold, conditional learn) in one K1 launch per sample")
+    return ContractProbe(
+        contract=contract, fn=_detector_observe,
+        args=(db._state, db._params, db._const, db._ring, db._rn, vals,
+              db._k_sigma, db._warm),
+        state=db._state._asdict(), device=device)

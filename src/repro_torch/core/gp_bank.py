@@ -348,8 +348,13 @@ def _fit_packed(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     j = torch.argmin(vs, dim=1)
     best = vs.gather(1, j[:, None])[:, 0]
     ts = ts.reshape(B, R, D).gather(1, j[:, None, None].expand(B, 1, D))[:, 0]
-    fallback = torch.as_tensor(fallback_theta(dim), dtype=x.dtype,
-                               device=x.device)
+    # Built on the device by fills: a copy from host memory (torch.as_tensor
+    # of the array, or an item assignment) would wait on the card in the
+    # middle of the fit.
+    fallback = torch.zeros(D, dtype=x.dtype, device=x.device)
+    for j, v in enumerate(fallback_theta(dim)):
+        if v != 0.0:
+            fallback[j:j + 1].fill_(float(v))
     theta = torch.where(torch.isfinite(best)[:, None], ts, fallback)
     chol, _ = _cholesky(_kernel_matrix(theta, x, mask))
     alpha = torch.cholesky_solve(y[:, :, None], chol)[:, :, 0]
@@ -368,6 +373,27 @@ def _posterior_packed(x: torch.Tensor, mask: torch.Tensor,
     v = torch.linalg.solve_triangular(chol, ks.transpose(1, 2), upper=False)
     var = torch.clamp(signal[:, None] - (v * v).sum(1), min=1e-10)
     return mean, var
+
+
+def member_partitions(b: int, devices: Optional[int], device: str
+                      ) -> List[Tuple[slice, torch.device]]:
+    """The member axis of a packed bank of ``b`` members as contiguous
+    blocks, each with its device.
+
+    ``devices=None`` (or 1) keeps every member on ``device``; a larger
+    count splits them over that many devices of ``device``'s kind
+    (:func:`repro_torch.distributed.mesh.scenario_mesh`). Members are
+    independent, so each block is fitted or evaluated by its own calls on
+    its own device, with no communication; a block that would be empty
+    (fewer members than devices) is left out.
+    """
+    if devices is None or devices <= 1:
+        return [(slice(0, b), resolve_device(device))]
+    from ..distributed.mesh import partition_bounds, scenario_mesh
+    mesh = scenario_mesh(devices, resolve_device(device))
+    return [(slice(r.start, r.stop), dev)
+            for r, dev in zip(partition_bounds(b, len(mesh)), mesh)
+            if len(r)]
 
 
 @dataclass
@@ -394,13 +420,19 @@ class GPBank:
             restarts: int = DEFAULT_RESTARTS,
             seeds: Optional[Sequence[int]] = None,
             max_iter: int = DEFAULT_MAX_ITER,
-            device: str = "cuda") -> "GPBank":
+            device: str = "cuda",
+            devices: Optional[int] = None) -> "GPBank":
         """Fit one GP per ``(x, y)`` dataset in one batched optimization on
         ``device`` (``"cuda"`` by default; raises where there is no card).
 
         ``seeds`` controls each member's restart initializations and matches
         :meth:`GP.fit`'s draws, so member ``i`` optimizes from the same
         starting points as ``GP.fit(x_i, y_i, seed=seeds[i])``.
+
+        ``devices`` splits the member axis over that many devices of
+        ``device``'s kind (:func:`member_partitions`): one fit (one kernel
+        launch on the card) per partition. Members fit independently, so
+        the result does not depend on the layout.
         """
         dev = resolve_device(device)
         if not datasets:
@@ -435,16 +467,24 @@ class GPBank:
             mask[i, :n] = 1.0
             t0s[i] = restart_inits(dim, restarts, seeds[i])
 
-        pack = lambda a: torch.as_tensor(a, dtype=_F32, device=dev)  # noqa
+        parts = member_partitions(b, devices, str(dev))
+        fits = []
         with obs.timed_phase("fit", "gp_bank.fit",
                              members=b, b=b, n_max=n_max):
-            packed = [pack(a) for a in (xs, ys, mask, t0s)]
-            theta, _val, chol, alpha = _fit_packed(*packed, max_iter=max_iter)
+            # Every partition's fit is launched before any result is read
+            # back, so the devices fit at once.
+            for rows, pdev in parts:
+                packed = [torch.as_tensor(a[rows], dtype=_F32, device=pdev)
+                          for a in (xs, ys, mask, t0s)]
+                fits.append(_fit_packed(*packed, max_iter=max_iter))
         if obs.enabled():
             obs.inc("sweep.gp_fits", b)
-            obs.inc("transfer.h2d_bytes", sum(t.nbytes for t in packed))
-        return GPBank(x=xs, mask=mask, theta=theta.cpu().numpy(),
-                      chol=chol.cpu().numpy(), alpha=alpha.cpu().numpy(),
+            obs.inc("transfer.h2d_bytes",
+                    sum(a.size * 4 for a in (xs, ys, mask, t0s)))
+        theta, chol, alpha = (
+            np.concatenate([f[i].cpu().numpy() for f in fits])
+            for i in (0, 2, 3))
+        return GPBank(x=xs, mask=mask, theta=theta, chol=chol, alpha=alpha,
                       y_mean=y_mean, y_std=y_std, device=str(dev))
 
     # -- queries -----------------------------------------------------------
@@ -488,7 +528,7 @@ class GPBank:
 
 
 def batched_posterior(gps: Sequence[GP], xq: np.ndarray,
-                      device: str = "cuda"
+                      device: str = "cuda", devices: Optional[int] = None
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """Posterior mean/variance of fitted GPs at a shared grid, in one
     batched float32 pass on ``device`` (``"cuda"`` by default; raises where
@@ -497,7 +537,8 @@ def batched_posterior(gps: Sequence[GP], xq: np.ndarray,
     Packs already-fitted scalar GPs (whatever path produced them) into
     padded tensors. Returns two (len(gps), m) arrays. This is the RGPE and
     controller fast path: every ensemble member in one pass instead of a
-    Python loop.
+    Python loop. ``devices`` splits the members over that many devices
+    (the query grid goes to each), as :meth:`GPBank.fit` does.
     """
     dev = resolve_device(device)
     if not gps:
@@ -519,14 +560,19 @@ def batched_posterior(gps: Sequence[GP], xq: np.ndarray,
         chol[i, :n, :n] = g.chol
         chol[i, n:, :n] = 0.0
         alpha[i, :n] = g.alpha
-    pack = lambda a: torch.as_tensor(a, dtype=_F32, device=dev)  # noqa: E731
+    outs = []
     with obs.span("gp_bank.batched_posterior", members=len(gps),
                   m=xq.shape[0]):
-        mean_s, var_s = _posterior_packed(
-            pack(xs), pack(mask), pack(theta), pack(chol), pack(alpha),
-            pack(xq)[None])
+        for rows, pdev in member_partitions(b, devices, str(dev)):
+            pack = lambda a: torch.as_tensor(  # noqa: E731
+                a, dtype=_F32, device=pdev)
+            outs.append(_posterior_packed(
+                pack(xs[rows]), pack(mask[rows]), pack(theta[rows]),
+                pack(chol[rows]), pack(alpha[rows]), pack(xq)[None]))
+    mean_s, var_s = (np.concatenate([o[i].cpu().numpy() for o in outs])
+                     for i in (0, 1))
     y_std = np.asarray([g.y_std for g in gps])
     y_mean = np.asarray([g.y_mean for g in gps])
-    mean = mean_s.cpu().numpy() * y_std[:, None] + y_mean[:, None]
-    var = var_s.cpu().numpy() * (y_std ** 2)[:, None]
+    mean = mean_s * y_std[:, None] + y_mean[:, None]
+    var = var_s * (y_std ** 2)[:, None]
     return mean, var

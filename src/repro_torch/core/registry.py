@@ -38,6 +38,7 @@ class Registry(Generic[T]):
     def __init__(self, kind: str):
         self.kind = kind
         self._entries: Dict[str, T] = {}
+        self._contracts: Dict[str, Callable] = {}
 
     def register(self, name: str, obj: Optional[T] = None, *,
                  override: bool = False) -> Callable[[T], T]:
@@ -55,12 +56,45 @@ class Registry(Generic[T]):
                     f"{self.kind} {name!r} is already registered; pass "
                     f"override=True to replace it")
             self._entries[name] = o
+            # An override's contract no longer describes the entry.
+            self._contracts.pop(name, None)
             return o
 
         return _install if obj is None else _install(obj)
 
     def unregister(self, name: str) -> None:
         self._entries.pop(name, None)
+        self._contracts.pop(name, None)
+
+    # -- contracts ----------------------------------------------------------
+    def attach_contract(self, name: str, probe_factory: Callable) -> None:
+        """Attach a contract probe factory to entry ``name``.
+
+        ``probe_factory`` is a callable of ``device`` (``"cuda"`` by
+        default) returning a
+        :class:`repro_torch.analysis.contracts.ContractProbe` (or a list of
+        them): the entry's hot-path call, example arguments and the
+        :class:`~repro_torch.analysis.contracts.CompilationContract` it must
+        satisfy. Factories run only when contracts are checked
+        (``scripts/check_contracts_torch.py``), so attaching is free at
+        import time. The checker treats an entry without one as a failure.
+        """
+        self.get(name)          # canonical unknown-name error shape
+        self._contracts[name] = probe_factory
+
+    def contract_for(self, name: str) -> Callable:
+        """The probe factory attached to ``name`` (canonical error when the
+        entry exists but never attached one)."""
+        self.get(name)
+        try:
+            return self._contracts[name]
+        except KeyError:
+            raise ValueError(
+                f"{self.kind} {name!r} has no attached compilation "
+                f"contract; register one with attach_contract") from None
+
+    def has_contract(self, name: str) -> bool:
+        return name in self._contracts
 
     def get(self, name: str) -> T:
         """The entry for ``name``; raises the canonical ValueError if absent."""
@@ -113,7 +147,8 @@ FORECAST_BACKENDS: Registry = Registry("forecast backend")
 #: build one detector set: ``backend(metrics, device) -> impl``.
 DETECTOR_BACKENDS: Registry = Registry("detector backend")
 
-#: Sweep simulation engines ("batched" / "fused" / "scalar"). Entries subclass
+#: Sweep simulation engines ("batched" / "fused" / "scalar" / "sharded").
+#: Entries subclass
 #: :class:`repro_torch.dsp.executor.SweepExecutorBase`; an engine with
 #: ``supports_intervals = True`` is driven a decision interval at a time.
 SIM_ENGINES: Registry = Registry("engine")

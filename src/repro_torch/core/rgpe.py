@@ -51,13 +51,15 @@ class RGPEnsemble:
     """Weighted GP mixture with the paper's mean/variance combination rule.
 
     ``device`` is where the batched member posterior runs (see
-    :func:`repro_torch.core.gp_bank.batched_posterior`); a lone active
-    member is evaluated by :meth:`GP.posterior` on the host.
+    :func:`repro_torch.core.gp_bank.batched_posterior`), split over
+    ``devices`` of its kind when that is set; a lone active member is
+    evaluated by :meth:`GP.posterior` on the host.
     """
 
     gps: List[GP]
     weights: np.ndarray
     device: str = "cuda"
+    devices: Optional[int] = None
 
     def posterior(self, xq: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         xq = np.atleast_2d(np.asarray(xq, np.float64))
@@ -70,7 +72,8 @@ class RGPEnsemble:
             return a * m, np.maximum((a * a) * v, 1e-12)
         # All members in one batched pass, then the paper's mixture rule.
         mus, vars_ = batched_posterior([gp for gp, _ in active], xq,
-                                       device=self.device)
+                                       device=self.device,
+                                       devices=self.devices)
         w = np.asarray([a for _, a in active])
         return w @ mus, np.maximum((w * w) @ vars_, 1e-12)
 
@@ -87,7 +90,8 @@ def build_rgpe(target_gp: Optional[GP],
                n_samples: int = 256,
                dilution_percentile: float = 95.0,
                seed: int = 0,
-               device: str = "cuda") -> Optional[RGPEnsemble]:
+               device: str = "cuda",
+               devices: Optional[int] = None) -> Optional[RGPEnsemble]:
     """Assemble the RGPE for one (segment, metric).
 
     Falls back gracefully at the cold-start corner cases:
@@ -99,14 +103,15 @@ def build_rgpe(target_gp: Optional[GP],
     if target_gp is None and not base_gps:
         return None
     if target_gp is not None and not base_gps:
-        return RGPEnsemble([target_gp], np.array([1.0]), device=device)
+        return RGPEnsemble([target_gp], np.array([1.0]), device=device,
+                           devices=devices)
 
     n_target = len(target_y)
     if target_gp is None or n_target < 3:
         # Not enough target evidence for ranking: borrow uniformly.
         gps = list(base_gps) + ([target_gp] if target_gp is not None else [])
         w = np.full(len(gps), 1.0 / len(gps))
-        return RGPEnsemble(gps, w, device=device)
+        return RGPEnsemble(gps, w, device=device, devices=devices)
 
     # Score on the target GP's own training set (it may lag the segment's
     # live data by a few points when refits are batched).
@@ -144,4 +149,4 @@ def build_rgpe(target_gp: Optional[GP],
         keep = np.ones_like(weights, bool)
     w = np.where(keep, weights, 0.0)
     w = w / w.sum()
-    return RGPEnsemble(gps, w, device=device)
+    return RGPEnsemble(gps, w, device=device, devices=devices)

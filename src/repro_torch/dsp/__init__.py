@@ -5,7 +5,8 @@ Demeter)."""
 from .baselines import (DS2Controller, ReactiveController, StaticController,
                         baseline_config, make_baseline)
 from .executor import (BatchedSweepExecutor, DSPExecutor, ProfileCost,
-                       ScalarSweepExecutor, SweepExecutorBase, profile_one)
+                       ScalarSweepExecutor, ShardedSweepExecutor,
+                       SweepExecutorBase, profile_one)
 from .fused import FusedSweepExecutor, fused_interval_scan
 from .policies import BaselinePolicy, DemeterPolicy, SweepPolicy
 from .runner import (FAILURE_INTERVAL_S, METRIC_WINDOW_S, OPT_INTERVAL_S,
@@ -34,7 +35,7 @@ __all__ = [
     "scenario_grid", "paper_grid", "run_sweep",
     # batched control plane
     "BatchedSweepExecutor", "FusedSweepExecutor", "ScalarSweepExecutor",
-    "SweepExecutorBase",
+    "ShardedSweepExecutor", "SweepExecutorBase",
     "BaselinePolicy", "DemeterPolicy", "SweepPolicy", "CONTROLLER_NAMES",
     # the port's own
     "BatchedNormals", "BufferedNormals", "step_batch_arrays",

@@ -32,14 +32,16 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .. import obs
 from ..core.anomaly import RecoveryTracker
 from ..core.executor import ProfileSpec, resolve_device
 from ..core.registry import SIM_ENGINES
 from ..core.segments import LATENCY, RECOVERY, USAGE
+from ..kernels.ref import METRIC_KEYS
 from .simulator import (BatchedNormals, BatchState, ClusterModel, JobConfig,
-                        SimJob)
+                        SimJob, step_batch_arrays)
 
 #: Profiling lifecycle constants (paper §3.2).
 STABILIZATION_S = 120.0
@@ -230,7 +232,8 @@ class SweepExecutorBase:
     def __init__(self, model: ClusterModel, configs: Sequence[JobConfig],
                  seeds: Sequence[int], *, dt: float, n_steps: int,
                  cmax: Optional[JobConfig] = None, device: str = "cuda",
-                 detector_backend: str = "scalar"):
+                 detector_backend: str = "scalar",
+                 devices: Optional[int] = None):
         S = len(configs)
         self.model = model
         self.dt = float(dt)
@@ -242,6 +245,11 @@ class SweepExecutorBase:
         self.device = resolve_device(device)
         #: the §2.3 detector behind profiling runs (DETECTOR_BACKENDS)
         self.detector_backend = detector_backend
+        #: scenario-mesh width (EngineConfig.devices): the sharded and fused
+        #: engines split their rows over that many devices of ``device``'s
+        #: kind; every engine accepts it so that the sweep engine passes one
+        #: constructor signature
+        self.devices = devices
         self.hist = {k: np.zeros((S, n_steps)) for k in HIST_KEYS}
         self.workers_hist = np.zeros((S, n_steps))
         self.profile_costs = [ProfileCost() for _ in range(S)]
@@ -411,6 +419,230 @@ class BatchedSweepExecutor(SweepExecutorBase):
         return self.state.caught_up
 
 
+class ScenarioMeshExecutorBase(SweepExecutorBase):
+    """The scenario-mesh row layout shared by the sharded and fused engines.
+
+    The scenario axis of :class:`~repro_torch.dsp.simulator.BatchState` is
+    struct-of-arrays and every per-tick operation is elementwise over it,
+    so the grid splits into contiguous partitions, one per device of the
+    mesh (:func:`repro_torch.distributed.mesh.scenario_mesh`), that never
+    communicate. Ragged grids are padded to the mesh width with C_max rows
+    (simulated for uniform partitions, sliced off every result).
+
+    This base owns the host half: a full padded ``BatchState`` mirror
+    carrying the control-flow state the NumPy engine mutates in place
+    (downtime/checkpoint clocks, deterministic, so the mirror never reads
+    them back), per-row RNG streams (:class:`~repro_torch.dsp.simulator.
+    BatchedNormals`, bit-identical to the ``"batched"`` engine's draws;
+    padding rows draw from seeds ``2**33 + r``), failure injection,
+    reconfiguration, and each partition's config-derived operands on its
+    device. An engine adds its persistent device state and its step.
+    """
+
+    def __init__(self, model: ClusterModel, configs: Sequence[JobConfig],
+                 seeds: Sequence[int], **kwargs):
+        super().__init__(model, configs, seeds, **kwargs)
+        from ..distributed.mesh import (pad_to_multiple, partition_bounds,
+                                        scenario_mesh)
+
+        S = len(configs)
+        self.mesh = scenario_mesh(self.devices, self.device)
+        self.n_devices = len(self.mesh)
+        #: padded scenario-axis length (divisible by the mesh width)
+        self.n_rows = pad_to_multiple(S, self.n_devices)
+        #: each partition's rows, in mesh order
+        self.partitions = partition_bounds(self.n_rows, self.n_devices)
+        self.state = BatchState.from_configs(configs).pad(self.n_rows)
+        self.rngs = BatchedNormals(
+            list(self.seeds) + [2 ** 33 + r for r in range(self.n_rows - S)])
+        self._cap_base = model.capacity_batch(self.state)
+        self._cfg_cache = list(configs)
+        #: rollback lag staged by inject_failure, folded into the next tick
+        self._lag_add = np.zeros(self.n_rows)
+        self._dev_cfg: Optional[List[tuple]] = None   # rebuilt on reconfig
+
+    # -- device plumbing ----------------------------------------------------
+    def _to_partitions(self, a: np.ndarray) -> List[torch.Tensor]:
+        """Each partition's columns (last axis) of a host array, copied to
+        its device (a copy, never a view: the mirror keeps mutating)."""
+        return [torch.from_numpy(np.ascontiguousarray(
+                    a[..., rows.start:rows.stop])).to(dev, copy=True)
+                for rows, dev in zip(self.partitions, self.mesh)]
+
+    def _device_configs(self) -> List[tuple]:
+        """Each partition's config-derived operands, copied to its device
+        again after every reconfiguration (configs change per decision, not
+        per tick)."""
+        if self._dev_cfg is None:
+            st = self.state
+            arrays = (st.workers, st.cpu_cores, st.memory_mb, st.task_slots,
+                      self._cap_base)
+            self._dev_cfg = list(zip(*(self._to_partitions(a)
+                                       for a in arrays)))
+            if obs.enabled():
+                obs.inc("sweep.device_config_rebuilds")
+                obs.inc("transfer.h2d_bytes", sum(a.nbytes for a in arrays))
+        return self._dev_cfg
+
+    # -- host half of a tick --------------------------------------------------
+    def _host_tick(self, dt: float):
+        """Advance the mirror's downtime/checkpoint clocks one tick and draw
+        its normals, in the NumPy engine's order (z1, then the masked
+        ``|z2|``); returns ``(down_pre, down_post, z1, z2)``."""
+        st = self.state
+        down_pre = st.downtime_left_s > 0.0
+        st.downtime_left_s = np.where(
+            down_pre, np.maximum(st.downtime_left_s - dt, 0.0),
+            st.downtime_left_s)
+        since = np.where(down_pre, st.since_checkpoint_s,
+                         st.since_checkpoint_s + dt)
+        since = np.where(~down_pre & (since >= st.checkpoint_interval_s),
+                         0.0, since)
+        st.since_checkpoint_s = since
+        down_post = st.downtime_left_s > 0.0
+        z1 = self.rngs.draw()
+        z2 = np.abs(self.rngs.draw(~down_post))
+        return down_pre, down_post, z1, z2
+
+    def _stage_failure(self, idx: int, stage: np.ndarray) -> None:
+        """:meth:`ClusterModel.inject_failure_batch` with the rollback lag
+        staged into ``stage`` (a later tick's lag_add plane, or the carry
+        into the next step) instead of added to the device tensor."""
+        st = self.state
+        state_mb = self.model.state_size_mb(float(st.last_rate[idx]))
+        restore = state_mb / (self.model.restore_mb_per_s
+                              * max(float(st.workers[idx]), 1.0))
+        st.downtime_left_s[idx] = self.model.failure_detect_s \
+            + self.model.redeploy_s + restore
+        stage[idx] += st.last_rate[idx] * st.since_checkpoint_s[idx]
+        st.since_checkpoint_s[idx] = 0.0
+
+    def inject_failure(self, idx: int) -> None:
+        self._stage_failure(idx, self._lag_add)
+
+    def _reconfigure_impl(self, idx: int, cfg: JobConfig,
+                          restart_s: Optional[float]) -> bool:
+        if self._cfg_cache[idx] == cfg:
+            return False
+        st = self.state
+        st.set_config(idx, cfg)
+        st.downtime_left_s[idx] = max(
+            float(st.downtime_left_s[idx]),
+            self.model.reconfig_restart_s if restart_s is None else restart_s)
+        st.since_checkpoint_s[idx] = 0.0
+        self._cap_base[idx] = self.model.capacity(cfg)
+        self._cfg_cache[idx] = cfg
+        self._dev_cfg = None
+        return True
+
+    def config_of(self, idx: int) -> JobConfig:
+        return self._cfg_cache[idx]
+
+    def workers(self) -> np.ndarray:
+        return self.state.workers[:len(self.seeds)]
+
+    def caught_up(self) -> np.ndarray:
+        return self.state.caught_up[:len(self.seeds)]
+
+
+def sharded_step(model: ClusterModel, lag: torch.Tensor,
+                 lag_add: torch.Tensor, rates: torch.Tensor,
+                 workers: torch.Tensor, cpu_cores: torch.Tensor,
+                 memory_mb: torch.Tensor, task_slots: torch.Tensor,
+                 cap_base: torch.Tensor, down_pre: torch.Tensor,
+                 down_post: torch.Tensor, z1: torch.Tensor,
+                 z2: torch.Tensor, dt: float) -> torch.Tensor:
+    """One tick of one partition of the sharded engine, on its device.
+
+    :func:`~repro_torch.dsp.simulator.step_batch_arrays` with the consumer
+    lag ``lag`` updated in place (the port's counterpart of the
+    reference's donated buffer). Returns the metrics stacked to
+    ``[len(METRIC_KEYS), S]`` float64, so that one copy brings them back.
+    """
+    new_lag, m = step_batch_arrays(model, lag, lag_add, rates, workers,
+                                   cpu_cores, memory_mb, task_slots,
+                                   cap_base, down_pre, down_post, z1, z2, dt)
+    lag.copy_(new_lag)
+    return torch.stack([m[k] for k in METRIC_KEYS])
+
+
+@SIM_ENGINES.register("sharded")
+class ShardedSweepExecutor(ScenarioMeshExecutorBase):
+    """The batched step, partitioned over the devices of a ``scenario``
+    mesh (the layout and the host half: :class:`ScenarioMeshExecutorBase`).
+
+    Each tick, every partition steps :func:`sharded_step` on its device,
+    with its slice of the consumer lag kept there and updated in place.
+    Results therefore equal :class:`BatchedSweepExecutor`'s on a shared
+    seed; on the CPU bit for bit.
+    """
+
+    def __init__(self, model: ClusterModel, configs: Sequence[JobConfig],
+                 seeds: Sequence[int], **kwargs):
+        super().__init__(model, configs, seeds, **kwargs)
+        self._lag = [torch.zeros(len(rows), dtype=torch.float64, device=dev)
+                     for rows, dev in zip(self.partitions, self.mesh)]
+
+    def device_step(self, planes: Sequence[Sequence[torch.Tensor]]
+                    ) -> List[torch.Tensor]:
+        """One tick of every partition on its device: ``planes[p]`` holds
+        partition ``p``'s ``(lag_add, rates, down_pre, down_post, z1, z2)``
+        tensors. Returns each partition's stacked metrics (on its device);
+        nothing is read back."""
+        cfg = self._device_configs()
+        return [sharded_step(self.model, lag, la, r, *cfg[p], dpre, dpost,
+                             z1, z2, self.dt)
+                for p, (lag, (la, r, dpre, dpost, z1, z2)) in enumerate(
+                    zip(self._lag, planes))]
+
+    def contract_probe(self, device: str = "cpu"):
+        """This executor's device step packaged for
+        :func:`repro_torch.analysis.contracts.run_probe`: no collective
+        operation, each partition's lag updated in place, float64 at most
+        and no host sync (see :data:`SHARDED_STEP_CONTRACT`)."""
+        from dataclasses import replace
+
+        from ..analysis.contracts import ContractProbe
+        n = self.n_rows
+        # rates above every row's capacity, so that each lag grows
+        host = (np.zeros(n), np.full(n, 1e7), np.zeros(n, bool),
+                np.zeros(n, bool), np.zeros(n), np.zeros(n))
+        planes = list(zip(*(self._to_partitions(a) for a in host)))
+        names = ("lag",) if self.n_devices == 1 else tuple(
+            f"lag[{p}]" for p in range(self.n_devices))
+        contract = replace(
+            SHARDED_STEP_CONTRACT, in_place=names,
+            max_ops=SHARDED_STEP_CONTRACT.max_ops * self.n_devices)
+        return ContractProbe(contract=contract, fn=self.device_step,
+                             args=(planes,), state=dict(zip(names, self._lag)),
+                             device=device)
+
+    # -- stepping -----------------------------------------------------------
+    def _step_impl(self, rates: np.ndarray, dt: float
+                   ) -> Dict[str, np.ndarray]:
+        S = len(self.seeds)
+        st = self.state
+        r = np.zeros(self.n_rows)
+        r[:S] = rates
+        down_pre, down_post, z1, z2 = self._host_tick(dt)
+
+        host = (self._lag_add, r, down_pre, down_post, z1, z2)
+        with obs.span("engine.sharded.step"):
+            planes = list(zip(*(self._to_partitions(a) for a in host)))
+            metrics = self.device_step(planes)
+        if obs.enabled():
+            obs.inc("transfer.h2d_bytes", sum(a.nbytes for a in host))
+        self._lag_add = np.zeros(self.n_rows)
+        ms = np.concatenate([m.cpu().numpy() for m in metrics], axis=1)
+        # the lag after the tick is the consumer_lag metric (a host copy)
+        st.lag_events = ms[METRIC_KEYS.index("consumer_lag")].copy()
+        st.last_rate = r
+        out = {k: ms[i, :S] for i, k in enumerate(METRIC_KEYS)}
+        if obs.enabled():
+            obs.inc("transfer.d2h_bytes", ms.nbytes)
+        return out
+
+
 @SIM_ENGINES.register("scalar")
 class ScalarSweepExecutor(SweepExecutorBase):
     """Reference oracle: one host SimJob per scenario, stepped in a Python
@@ -445,3 +677,61 @@ class ScalarSweepExecutor(SweepExecutorBase):
 
     def caught_up(self) -> np.ndarray:
         return np.array([j.caught_up for j in self.jobs])
+
+
+# ---------------------------------------------------------------------------
+# contracts (see repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def _sharded_step_contract():
+    from ..analysis.contracts import COLLECTIVE_OPS, CompilationContract
+    return CompilationContract(
+        name="engine:sharded",
+        # The scenario axis is struct-of-arrays and every per-tick operation
+        # is elementwise over it, so the partitions never communicate.
+        forbidden_ops=COLLECTIVE_OPS,
+        # Each partition's consumer lag is its one persistent device tensor
+        # and is updated in place (the reference's donated buffer).
+        in_place=("lag",),
+        # float64 is deliberate: the step mirrors the float64 NumPy engine
+        # bit for bit.
+        dtype_ceiling="float64",
+        # per partition; step_batch_arrays is ~40 elementwise operations
+        max_ops=96,
+        forbid_host_sync=True,
+        note="scenario-partitioned sim step: no collective, each "
+             "partition's lag updated in place, no host sync inside the "
+             "step")
+
+
+#: The sharded engine's step invariants (``max_ops`` per partition).
+SHARDED_STEP_CONTRACT = _sharded_step_contract()
+
+
+def _sharded_probe(device: str = "cuda"):
+    ex = ShardedSweepExecutor(ClusterModel(), [JobConfig(), JobConfig()],
+                              seeds=[0, 1], dt=5.0, n_steps=16,
+                              device=device)
+    # Companion probe: a whole tick with obs forced on must dispatch no
+    # more operations than with obs off (spans and counters stay on the
+    # host side of every call).
+    rates = np.array([4e4, 6e4])
+    obs_probe = obs.probe.instrumentation_contract_probe(
+        "engine:sharded+obs", ex.step, (rates,), device=device)
+    return [ex.contract_probe(device), obs_probe]
+
+
+def _host_engine_probe(name: str, why: str):
+    from ..analysis.contracts import host_probe
+    return host_probe(f"engine:{name}", why)
+
+
+SIM_ENGINES.attach_contract("sharded", _sharded_probe)
+SIM_ENGINES.attach_contract(
+    "batched", lambda device="cuda": _host_engine_probe(
+        "batched", "vectorized NumPy stepping on the host: no device call "
+                   "to pin"))
+SIM_ENGINES.attach_contract(
+    "scalar", lambda device="cuda": _host_engine_probe(
+        "scalar", "per-job Python reference oracle on the host: no device "
+                  "call to pin"))

@@ -22,10 +22,19 @@ and the per-row RNG streams. Their draws must stay bit-identical to the
 ``"batched"`` engine's (``BatchedNormals`` order: z1 for all rows, then the
 masked ``|z2|``), so they are precomputed for the interval. The consumer
 lag and the detector state are the persistent device tensors.
+
+The engine always lays its rows over a ``scenario`` mesh
+(:func:`repro_torch.distributed.mesh.scenario_mesh`; ``devices=None`` is
+every visible device of ``EngineConfig.device``'s kind): the rows are
+padded to the mesh width with C_max rows, as the sharded engine pads them,
+and split into contiguous partitions, each with its own state tensors on
+its device and one :func:`~repro_torch.kernels.ops.fused_interval` call
+per interval. Every per-tick operation is elementwise over rows, so the
+partitions never communicate; with one device there is one partition.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +44,8 @@ from ..core.registry import SIM_ENGINES
 from ..kernels import fused_tick as _k2
 from ..kernels import ops
 from ..kernels.ref import METRIC_KEYS
-from .executor import SweepExecutorBase
-from .simulator import BatchedNormals, BatchState, ClusterModel, JobConfig
+from .executor import ScenarioMeshExecutorBase
+from .simulator import ClusterModel, JobConfig
 
 #: AR order of the on-device detector: bias + previous log-lag sample.
 DET_ORDER = 2
@@ -80,7 +89,7 @@ def fused_interval_scan(model: ClusterModel, lag: torch.Tensor,
 
 
 @SIM_ENGINES.register("fused")
-class FusedSweepExecutor(SweepExecutorBase):
+class FusedSweepExecutor(ScenarioMeshExecutorBase):
     """Sweep executor advancing whole decision intervals per call.
 
     The sweep engine hands :meth:`step_interval` K ticks of rates plus a
@@ -88,8 +97,9 @@ class FusedSweepExecutor(SweepExecutorBase):
     clock/RNG planes and :func:`fused_interval_scan` advances the device
     state. :meth:`step` stays available as a one-tick interval.
 
-    The tensors live on ``EngineConfig.device`` (``"cuda"`` by default); a
-    CUDA device that is not there raises instead of falling back.
+    The tensors live on ``EngineConfig.device`` (``"cuda"`` by default),
+    one partition per device of the scenario mesh; a CUDA device that is
+    not there raises instead of falling back.
     """
 
     #: the sweep engine drives interval stepping when this is True
@@ -98,64 +108,56 @@ class FusedSweepExecutor(SweepExecutorBase):
     def __init__(self, model: ClusterModel, configs: Sequence[JobConfig],
                  seeds: Sequence[int], **kwargs):
         super().__init__(model, configs, seeds, **kwargs)
-        n = len(configs)
-        self.state = BatchState.from_configs(configs)
-        self.rngs = BatchedNormals(self.seeds)
-        self._cap_base = model.capacity_batch(self.state)
-        self._cfg_cache = list(configs)
-        #: rollback lag staged by inject_failure between intervals, folded
-        #: into the first tick of the next interval
-        self._lag_add = np.zeros(n)
-
-        f64 = dict(dtype=torch.float64, device=self.device)
-        self._lag = torch.zeros(n, **f64)
-        # detector state: AR(1)+bias RLS on log1p(lag) per scenario
-        self._det_w = torch.zeros((n, DET_ORDER), **f64)
-        self._det_p = (10.0 * torch.eye(DET_ORDER, **f64)).repeat(n, 1, 1)
-        self._det_y = torch.zeros(n, **f64)
-        self._det_trig = torch.zeros(n, dtype=torch.int64, device=self.device)
-        self._dev_cfg: Optional[tuple] = None     # rebuilt when configs move
-        #: step_interval calls: one fused_interval call (a launch on the
-        #: card) each
+        # each partition's persistent state on its device: the lag and the
+        # detector's AR(1)+bias RLS on log1p(lag)
+        self._parts: List[Dict[str, torch.Tensor]] = []
+        for rows, dev in zip(self.partitions, self.mesh):
+            f64 = dict(dtype=torch.float64, device=dev)
+            m = len(rows)
+            self._parts.append({
+                "lag": torch.zeros(m, **f64),
+                "det_w": torch.zeros((m, DET_ORDER), **f64),
+                "det_p": (10.0 * torch.eye(DET_ORDER, **f64)).repeat(m, 1, 1),
+                "det_y": torch.zeros(m, **f64),
+                "det_trig": torch.zeros(m, dtype=torch.int64, device=dev)})
+        #: step_interval calls; each makes one fused_interval call (a launch
+        #: on the card) per partition
         self.intervals_stepped = 0
 
     # -- device plumbing ----------------------------------------------------
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A device copy of a host array (never a view of it: the host
-        mirror keeps mutating its arrays)."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
-                                                            copy=True)
-
-    def _device_configs(self) -> tuple:
-        """Config-derived ``[S]`` operands, copied to the device again after
-        every reconfiguration (configs change per decision, not per tick)."""
-        if self._dev_cfg is None:
-            st = self.state
-            arrays = (st.workers, st.cpu_cores, st.memory_mb, st.task_slots,
-                      self._cap_base)
-            self._dev_cfg = tuple(self._to_device(a) for a in arrays)
-            if obs.enabled():
-                obs.inc("sweep.device_config_rebuilds")
-                obs.inc("transfer.h2d_bytes", sum(a.nbytes for a in arrays))
-        return self._dev_cfg
-
     def device_state(self) -> Dict[str, torch.Tensor]:
-        """The persistent device tensors (live, not copies)."""
-        return {"lag": self._lag, "det_w": self._det_w, "det_p": self._det_p,
-                "det_y": self._det_y, "det_trig": self._det_trig}
+        """The persistent device tensors of every row: the live tensors
+        with one partition, else copies gathered on the first device."""
+        if len(self._parts) == 1:
+            return dict(self._parts[0])
+        first = self.mesh[0]
+        return {k: torch.cat([p[k].to(first) for p in self._parts])
+                for k in self._parts[0]}
 
     def load_device_state(self, tensors: Dict[str, torch.Tensor]) -> None:
         """Overwrite the persistent device tensors in place (see
-        :func:`repro_torch.interop.fused_state_from_arrays`); the host
-        mirror's lag follows."""
-        for name, buf in self.device_state().items():
+        :func:`repro_torch.interop.fused_state_from_arrays`; one row per
+        padded row, split over the partitions); the host mirror's lag
+        follows."""
+        for name in self._parts[0]:
             src = tensors[name]
-            if src.shape != buf.shape or src.dtype != buf.dtype:
+            want = (self.n_rows, *self._parts[0][name].shape[1:])
+            dtype = self._parts[0][name].dtype
+            if tuple(src.shape) != want or src.dtype != dtype:
                 raise ValueError(
-                    f"{name}: expected {tuple(buf.shape)} {buf.dtype}, got "
+                    f"{name}: expected {want} {dtype}, got "
                     f"{tuple(src.shape)} {src.dtype}")
-            buf.copy_(src)
-        self.state.from_device(self._lag)
+            for rows, part in zip(self.partitions, self._parts):
+                part[name].copy_(src[rows.start:rows.stop])
+        self._adopt_lag()
+
+    def _adopt_lag(self) -> None:
+        """The partitions' lags into the host mirror (a host copy)."""
+        if len(self._parts) == 1:
+            self.state.from_device(self._parts[0]["lag"])
+        else:
+            self.state.lag_events = np.concatenate(
+                [p["lag"].cpu().numpy() for p in self._parts])
 
     # -- interval stepping ---------------------------------------------------
     def step_interval(self, rates_ks: np.ndarray,
@@ -177,58 +179,51 @@ class FusedSweepExecutor(SweepExecutorBase):
                              f"got {S}")
         st = self.state
         dt = self.dt
+        n = self.n_rows
 
-        dpre = np.zeros((K, S), bool)
-        dpost = np.zeros((K, S), bool)
-        z1 = np.zeros((K, S))
-        z2 = np.zeros((K, S))
-        lag_add = np.zeros((K, S))
+        R = np.zeros((K, n))
+        R[:, :S] = rates_ks
+        dpre = np.zeros((K, n), bool)
+        dpost = np.zeros((K, n), bool)
+        z1 = np.zeros((K, n))
+        z2 = np.zeros((K, n))
+        lag_add = np.zeros((K, n))
         lag_add[0] = self._lag_add
-        self._lag_add = np.zeros(S)
+        self._lag_add = np.zeros(n)
 
         # Host half, precomputed for the whole interval: downtime/checkpoint
         # clocks + RNG draws in the exact batched order (z1 all rows, then
         # masked |z2|), with tick-k injections applied between tick k and
         # tick k+1 — the per-tick engines' sequencing.
         for k in range(K):
-            down_pre = st.downtime_left_s > 0.0
-            st.downtime_left_s = np.where(
-                down_pre, np.maximum(st.downtime_left_s - dt, 0.0),
-                st.downtime_left_s)
-            since = np.where(down_pre, st.since_checkpoint_s,
-                             st.since_checkpoint_s + dt)
-            since = np.where(~down_pre & (since >= st.checkpoint_interval_s),
-                             0.0, since)
-            st.since_checkpoint_s = since
-            down_post = st.downtime_left_s > 0.0
-            dpre[k] = down_pre
-            dpost[k] = down_post
-            z1[k] = self.rngs.draw()
-            z2[k] = np.abs(self.rngs.draw(~down_post))
-            st.last_rate = rates_ks[k]
+            dpre[k], dpost[k], z1[k], z2[k] = self._host_tick(dt)
+            st.last_rate = R[k]
             if inject_ks is not None and inject_ks[k].any():
                 stage = lag_add[k + 1] if k + 1 < K else self._lag_add
                 for j in np.nonzero(inject_ks[k])[0]:
                     self._stage_failure(int(j), stage)
 
+        host = (R, lag_add, dpre, dpost, z1, z2)
         with obs.timed_phase("simulate", "engine.fused.interval",
                              K=K, Kp=K, scenarios=S):
-            planes = [self._to_device(a) for a in (rates_ks, lag_add, dpre,
-                                                   dpost, z1, z2)]
-            ms = fused_interval_scan(
-                self.model, self._lag, self._det_w, self._det_p, self._det_y,
-                self._det_trig, *planes, *self._device_configs(), DET_LAMBDA,
-                DET_THRESH, dt)
+            # one fused_interval call per partition, each on its device;
+            # every launch is issued before any result is read back
+            planes = list(zip(*(self._to_partitions(a) for a in host)))
+            cfg = self._device_configs()
+            ms = [fused_interval_scan(
+                      self.model, part["lag"], part["det_w"], part["det_p"],
+                      part["det_y"], part["det_trig"], *planes[p], *cfg[p],
+                      DET_LAMBDA, DET_THRESH, dt)
+                  for p, part in enumerate(self._parts)]
         self.intervals_stepped += 1
-        st.from_device(self._lag)
-        out = dict(zip(METRIC_KEYS, ms.cpu().numpy()))
+        self._adopt_lag()
+        ms = np.concatenate([m.cpu().numpy() for m in ms], axis=2)
+        out = {key: ms[i, :, :S] for i, key in enumerate(METRIC_KEYS)}
         if obs.enabled():
             obs.inc("sweep.intervals")
             obs.inc("sweep.ticks", K)
             obs.inc("sweep.scenario_ticks", K * S)
-            obs.inc("transfer.h2d_bytes",
-                    rates_ks.nbytes + lag_add.nbytes + dpre.nbytes
-                    + dpost.nbytes + z1.nbytes + z2.nbytes)
+            obs.inc("transfer.h2d_bytes", sum(a.nbytes for a in host))
             obs.inc("transfer.d2h_bytes", ms.nbytes + st.lag_events.nbytes)
             obs.track_kernel_loads("fused_scan",
                                    obs.kernel_libs_loaded(("fused_tick",)))
@@ -238,7 +233,7 @@ class FusedSweepExecutor(SweepExecutorBase):
         for key in self.hist:
             self.hist[key][:, i0:i0 + K] = out[key].T
         # configs only change at interval boundaries -> constant workers
-        self.workers_hist[:, i0:i0 + K] = st.workers[:, None]
+        self.workers_hist[:, i0:i0 + K] = st.workers[:S, None]
         self.step_index += K
         return out
 
@@ -246,7 +241,8 @@ class FusedSweepExecutor(SweepExecutorBase):
     def anomaly_triggers(self) -> np.ndarray:
         """Per-scenario count of detector trigger flags (auxiliary
         telemetry; feeds nothing back into results)."""
-        return self._det_trig.cpu().numpy()
+        return np.concatenate([p["det_trig"].cpu().numpy()
+                               for p in self._parts])[:len(self.seeds)]
 
     # -- SweepExecutorBase stepping hooks -----------------------------------
     def step(self, rates: np.ndarray) -> Dict[str, np.ndarray]:
@@ -255,42 +251,114 @@ class FusedSweepExecutor(SweepExecutorBase):
         m = self.step_interval(np.asarray(rates, float)[None, :])
         return {k: v[0] for k, v in m.items()}
 
-    def _stage_failure(self, idx: int, stage: np.ndarray) -> None:
-        """:meth:`ClusterModel.inject_failure_batch` with the rollback lag
-        staged into ``stage`` (a later tick's lag_add plane, or the
-        cross-interval carry) instead of added to the device buffer."""
-        st = self.state
-        state_mb = self.model.state_size_mb(float(st.last_rate[idx]))
-        restore = state_mb / (self.model.restore_mb_per_s
-                              * max(float(st.workers[idx]), 1.0))
-        st.downtime_left_s[idx] = self.model.failure_detect_s \
-            + self.model.redeploy_s + restore
-        stage[idx] += st.last_rate[idx] * st.since_checkpoint_s[idx]
-        st.since_checkpoint_s[idx] = 0.0
 
-    def inject_failure(self, idx: int) -> None:
-        self._stage_failure(idx, self._lag_add)
+# ---------------------------------------------------------------------------
+# contracts (see repro_torch.analysis)
+# ---------------------------------------------------------------------------
 
-    def _reconfigure_impl(self, idx: int, cfg: JobConfig,
-                          restart_s: Optional[float]) -> bool:
-        if self._cfg_cache[idx] == cfg:
-            return False
-        st = self.state
-        st.set_config(idx, cfg)
-        st.downtime_left_s[idx] = max(
-            float(st.downtime_left_s[idx]),
-            self.model.reconfig_restart_s if restart_s is None else restart_s)
-        st.since_checkpoint_s[idx] = 0.0
-        self._cap_base[idx] = self.model.capacity(cfg)
-        self._cfg_cache[idx] = cfg
-        self._dev_cfg = None
-        return True
+def _fused_interval_contract():
+    from ..analysis.contracts import COLLECTIVE_OPS, CompilationContract
+    return CompilationContract(
+        name="engine:fused",
+        # Elementwise over the scenario axis tick by tick: the partitions
+        # never communicate.
+        forbidden_ops=COLLECTIVE_OPS,
+        # The whole interval is one K2 launch; the per-tick kernel is not
+        # on the path.
+        launches={"fused_interval": 1, "fused_tick": 0},
+        # The lag and the detector state are the persistent device tensors
+        # and are updated in place (the reference's donated carry). The
+        # trigger counter moves only when a trigger fires.
+        in_place=("lag", "det_w", "det_p", "det_y"),
+        # float64 is deliberate: the interval mirrors the float64 NumPy
+        # engine.
+        dtype_ceiling="float64",
+        max_ops=8,
+        # A host read inside the interval would wake the host per call —
+        # the failure mode this engine exists to remove.
+        forbid_host_sync=True,
+        # K2 takes K and S at run time: one library for every interval
+        # shape.
+        max_loads=1,
+        graph_capturable=True,
+        note="whole-interval K2 call: one launch, no collective, state "
+             "updated in place, no host sync, one library load for every "
+             "shape, replayable from a CUDA graph")
 
-    def config_of(self, idx: int) -> JobConfig:
-        return self._cfg_cache[idx]
 
-    def workers(self) -> np.ndarray:
-        return self.state.workers
+FUSED_INTERVAL_CONTRACT = _fused_interval_contract()
 
-    def caught_up(self) -> np.ndarray:
-        return self.state.caught_up
+
+def interval_arg_sets(device: str = "cpu",
+                      shapes: Sequence[Tuple[int, int]] = ((2, 5), (2, 12),
+                                                          (3, 8), (3, 16))
+                      ) -> List[tuple]:
+    """A workload of ``(S, K)`` interval shapes as ``(args, kwargs)`` sets
+    for :func:`fused_interval_scan` on ``device`` (the ``max_loads``
+    budget: one library load for all of them)."""
+    model = ClusterModel()
+    f64 = dict(dtype=torch.float64, device=device)
+    sets = []
+    for S, K in shapes:
+        plane = torch.zeros((K, S), **f64)
+        flags = torch.zeros((K, S), dtype=torch.bool, device=device)
+        rows = torch.ones(S, **f64)
+        args = (model, torch.zeros(S, **f64),
+                torch.zeros((S, DET_ORDER), **f64),
+                torch.eye(DET_ORDER, **f64).repeat(S, 1, 1),
+                torch.zeros(S, **f64),
+                torch.zeros(S, dtype=torch.int64, device=device),
+                plane + 5e4, plane, flags, flags, plane, plane, rows * 4.0,
+                rows, rows * 4096.0, rows, rows * 40_000.0, DET_LAMBDA,
+                DET_THRESH, 5.0)
+        sets.append((args, {}))
+    return sets
+
+
+def _fused_probe(device: str = "cuda"):
+    from ..analysis.contracts import (COLLECTIVE_OPS, CompilationContract,
+                                      ContractProbe, count_loads)
+
+    ex = FusedSweepExecutor(ClusterModel(), [JobConfig(), JobConfig()],
+                            seeds=[0, 1], dt=5.0, n_steps=64, device=device)
+    # One interval of K = 8 ticks on the first partition, at rates above
+    # capacity so that every state tensor moves.
+    part, dev = ex._parts[0], ex.mesh[0]
+    S, K = part["lag"].shape[0], 8
+    f64 = dict(dtype=torch.float64, device=dev)
+    flags = torch.zeros((K, S), dtype=torch.bool, device=dev)
+    planes = (torch.full((K, S), 1e6, **f64), torch.zeros((K, S), **f64),
+              flags, flags, torch.zeros((K, S), **f64),
+              torch.zeros((K, S), **f64))
+    interval = ContractProbe(
+        contract=FUSED_INTERVAL_CONTRACT, fn=fused_interval_scan,
+        args=(ex.model, part["lag"], part["det_w"], part["det_p"],
+              part["det_y"], part["det_trig"], *planes,
+              *ex._device_configs()[0], DET_LAMBDA, DET_THRESH, ex.dt),
+        state=part, device=device,
+        loads=lambda: count_loads(fused_interval_scan,
+                                  interval_arg_sets(str(dev))))
+    # The per-tick K2 kernel, the Pallas kernel's direct counterpart.
+    n = 4
+    rows = torch.ones(n, **f64)
+    tick = ContractProbe(
+        contract=CompilationContract(
+            name="kernel:fused-tick", forbidden_ops=COLLECTIVE_OPS,
+            launches={"fused_tick": 1}, forbid_host_sync=True,
+            note="fused lag update + detector observe + RLS tick (K2)"),
+        fn=ops.fused_tick,
+        args=(rows * 10.0, torch.zeros(n, **f64), rows * 5e4, rows * 4e4,
+              torch.zeros(n, dtype=torch.bool, device=dev),
+              torch.zeros((n, DET_ORDER), **f64),
+              torch.eye(DET_ORDER, **f64).repeat(n, 1, 1),
+              torch.zeros(n, **f64), DET_LAMBDA, DET_THRESH, 5.0),
+        device=device)
+    # Companion probe: an interval with obs forced on must dispatch no
+    # more operations than with obs off.
+    rates = np.full((4, 2), 5e4)
+    obs_probe = obs.probe.instrumentation_contract_probe(
+        "engine:fused+obs", ex.step_interval, (rates,), device=device)
+    return [interval, tick, obs_probe]
+
+
+SIM_ENGINES.attach_contract("fused", _fused_probe)

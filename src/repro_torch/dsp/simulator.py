@@ -391,11 +391,73 @@ class BatchState:
         self.task_slots[i] = cfg.task_slots
         self.checkpoint_interval_s[i] = cfg.checkpoint_interval_s
 
+    #: field names in declaration order (pad/unpad walk these)
+    FIELDS = ("workers", "cpu_cores", "memory_mb", "task_slots",
+              "checkpoint_interval_s", "lag_events", "downtime_left_s",
+              "since_checkpoint_s", "last_rate")
+
+    # Every field is classified for the device-backed engines (sharded /
+    # fused), which keep a host BatchState mirror beside device tensors
+    # updated in place; the three groups partition FIELDS exactly.
+    #: control-flow state the host mirror advances deterministically every
+    #: tick (downtime/checkpoint clocks, the last arrival rate failures
+    #: roll back against), never read back from the device
+    HOST_MIRROR_FIELDS = ("downtime_left_s", "since_checkpoint_s",
+                          "last_rate")
+    #: state whose authoritative copy lives on the device between calls
+    #: (adopted back through :meth:`from_device`)
+    DEVICE_FIELDS = ("lag_events",)
+    #: config-derived values that only change on reconfiguration
+    CONFIG_FIELDS = ("workers", "cpu_cores", "memory_mb", "task_slots",
+                     "checkpoint_interval_s")
+
+    def to_host_mirror(self, rngs: Optional["BatchedNormals"] = None
+                       ) -> Dict[str, np.ndarray]:
+        """Snapshot of everything the host side of a device-backed engine
+        owns: the :data:`HOST_MIRROR_FIELDS` clocks plus (when ``rngs`` is
+        given) the per-row RNG stream positions. Round-trips through
+        :meth:`from_host_mirror`."""
+        mirror = {f: getattr(self, f).copy()
+                  for f in self.HOST_MIRROR_FIELDS}
+        if rngs is not None:
+            mirror["rng_pos"] = rngs._pos.copy()
+        return mirror
+
+    def from_host_mirror(self, mirror: Mapping[str, np.ndarray]) -> None:
+        """Restore a :meth:`to_host_mirror` snapshot (RNG positions are the
+        caller's to restore: a Generator cannot be rewound)."""
+        for f in self.HOST_MIRROR_FIELDS:
+            setattr(self, f, np.array(mirror[f]))
+
     def from_device(self, lag: torch.Tensor) -> None:
         """Adopt the device's consumer-lag buffer as a host copy (the device
-        buffer is updated in place by the next interval, so the mirror must
+        buffer is updated in place by the next call, so the mirror must
         never alias it)."""
         self.lag_events = lag.detach().to("cpu", copy=True).numpy()
+
+    def pad(self, n: int,
+            fill_config: Optional[JobConfig] = None) -> "BatchState":
+        """A copy padded to ``n`` rows (``n >= len(self)``).
+
+        Padding rows carry ``fill_config`` (default :class:`JobConfig`,
+        i.e. C_max) with fresh dynamic state: what the device-backed
+        engines simulate on the rows that square a ragged grid off against
+        the mesh width; :meth:`unpad` slices them back off.
+        """
+        if n < len(self):
+            raise ValueError(f"cannot pad {len(self)} rows down to {n}")
+        pad = BatchState.from_configs(
+            [fill_config or JobConfig()] * (n - len(self)))
+        return BatchState(**{f: np.concatenate([getattr(self, f),
+                                                getattr(pad, f)])
+                             for f in self.FIELDS})
+
+    def unpad(self, n: int) -> "BatchState":
+        """The first ``n`` rows as a copy (inverse of :meth:`pad`)."""
+        if n > len(self):
+            raise ValueError(f"cannot slice {n} rows out of {len(self)}")
+        return BatchState(**{f: getattr(self, f)[:n].copy()
+                             for f in self.FIELDS})
 
     @property
     def caught_up(self) -> np.ndarray:

@@ -327,7 +327,8 @@ class SweepEngine:
         self.executor = ex = executor_cls(
             self.model, start_configs, seeds, dt=self.dt,
             n_steps=self.n_steps, device=config.device,
-            detector_backend=config.detector_backend)
+            detector_backend=config.detector_backend,
+            devices=config.devices)
 
         # One shared ForecastBank on the config's device for every scenario
         # whose policy opts in (``uses_tsf_bank``): the engine stages all due
@@ -342,7 +343,8 @@ class SweepEngine:
         if bank_rows and config.forecast_backend == "bank":
             forecast_bank = ForecastBank(
                 [self.specs[j].forecaster for j in bank_rows],
-                horizon=hp_horizon, device=config.device)
+                horizon=hp_horizon, device=config.device,
+                devices=config.devices)
             tsf_views = {j: forecast_bank.view(r)
                          for r, j in enumerate(bank_rows)}
         elif bank_rows:

@@ -80,6 +80,25 @@ def serving_backend(*, seed: int = 0, decode_step_s: float = 0.02,
     return ServingExecutor(cluster), tpu_serving_space()
 
 
+def _sim_contract_probe(device: str = "cuda"):
+    # The fleet's batched hot path is the epoch ingestion reduce; it is
+    # backend-independent, so the default backend carries its contract.
+    from .ingest import contract_probe
+    return contract_probe(device)
+
+
+def _serving_contract_probe(device: str = "cuda"):
+    from ..analysis.contracts import host_probe
+    return host_probe(
+        "fleet backend:serving",
+        "per-job queueing dynamics are host-side NumPy; the fleet's batched "
+        "call (the ingestion reduce) is pinned on the 'sim' entry")
+
+
+FLEET_BACKENDS.attach_contract("sim", _sim_contract_probe)
+FLEET_BACKENDS.attach_contract("serving", _serving_contract_probe)
+
+
 # ---------------------------------------------------------------------------
 # request/response surface
 # ---------------------------------------------------------------------------

@@ -164,3 +164,48 @@ class IngestBuffer:
         obs.inc("fleet.ingest_samples", n_taken)
         return (out[:, :K].astype(np.float64),
                 out[:, K:].astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# contract (see repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def _epoch_reduce_contract():
+    from ..analysis.contracts import COLLECTIVE_OPS, CompilationContract
+    return CompilationContract(
+        name="fleet backend:ingest",
+        forbidden_ops=COLLECTIVE_OPS,
+        # Telemetry means need no more precision than their float32 inputs;
+        # the fleet reduce must never promote.
+        dtype_ceiling="float32",
+        forbid_host_sync=True,
+        # about 3 operations per padded sample plus a fixed dozen
+        max_ops=32,
+        # The reduce is plain torch: no kernel library at any sample count.
+        max_loads=0,
+        note="fleet epoch reduce: one call per epoch for the whole fleet, "
+             "sample axis padded pow2(min 4)")
+
+
+#: The ingestion hot path's invariants.
+EPOCH_REDUCE_CONTRACT = _epoch_reduce_contract()
+
+
+def contract_probe(device: str = "cuda"):
+    """The ingestion reduce packaged for
+    :func:`repro_torch.analysis.contracts.run_probe`; registered on the
+    ``"sim"`` fleet backend (the reduce is backend-independent)."""
+    from ..analysis.contracts import ContractProbe, count_loads
+    dev = resolve_device(device)
+
+    def plane(rows: int, n: int) -> torch.Tensor:
+        vals = np.full((rows, n, len(INGEST_KEYS)), np.nan, dtype=np.float32)
+        vals[:, 0, :] = 1.0
+        return torch.from_numpy(vals).to(dev)
+
+    return ContractProbe(
+        contract=EPOCH_REDUCE_CONTRACT, fn=epoch_reduce, args=(plane(8, 4),),
+        device=device,
+        loads=lambda: count_loads(epoch_reduce, [
+            ((plane(8, bucket_pow2(n, minimum=4)),), {})
+            for n in (3, 4, 7, 8, 9)]))

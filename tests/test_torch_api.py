@@ -49,16 +49,15 @@ from repro_torch.core.demeter import (DemeterController,  # noqa: E402
 from repro_torch.dsp import (BatchedSweepExecutor, ClusterModel,  # noqa: E402
                              DSPExecutor, FusedSweepExecutor, JobConfig,
                              NoFailures, ScalarSweepExecutor, ScenarioSpec,
-                             SweepEngine, make_trace, run_sweep,
-                             scenario_grid)
+                             ShardedSweepExecutor, SweepEngine, make_trace,
+                             run_sweep, scenario_grid)
 
 # ---------------------------------------------------------------------------
 # API snapshot
 # ---------------------------------------------------------------------------
 
-#: names of the reference's API whose slices are not ported yet: the
-#: multi-device sharded engine
-UNPORTED = {"core": set(), "dsp": {"ShardedSweepExecutor"}}
+#: names of the reference's API whose slices are not ported yet: none
+UNPORTED = {"core": set(), "dsp": set()}
 #: the port's own exports, beyond the reference's
 PORT_ONLY = {
     "core": {"resolve_device", "FORECASTER_DEFAULTS", "ScalarDetectorSet",
@@ -68,9 +67,9 @@ PORT_ONLY = {
             "FAILURE_INTERVAL_S", "RECOVERY_CAP_S", "METRIC_WINDOW_S",
             "OPT_INTERVAL_S"},
 }
-#: EngineConfig fields: the reference's (``devices`` belongs to the sharded
-#: engine) and the port's own (where tensors live)
-UNPORTED_FIELDS = ("devices",)
+#: EngineConfig fields: the reference's, all ported, and the port's own
+#: (where tensors live)
+UNPORTED_FIELDS = ()
 PORT_FIELDS = ("device",)
 
 
@@ -102,6 +101,32 @@ class TestApiSnapshot:
         assert params == [f for f in ref if f not in UNPORTED_FIELDS] \
             + list(PORT_FIELDS)
 
+    @pytest.mark.parametrize("name", ["BatchedSweepExecutor",
+                                      "FusedSweepExecutor",
+                                      "ScalarSweepExecutor",
+                                      "ShardedSweepExecutor"])
+    def test_executors_take_devices(self, name):
+        """Every engine takes the reference's ``devices=`` keyword (the
+        sweep engine passes one constructor signature), as the base does."""
+        ref = inspect.signature(ref_dsp.SweepExecutorBase).parameters
+        port = inspect.signature(dsp.SweepExecutorBase).parameters
+        assert ref["devices"].default is port["devices"].default is None
+        assert ref["devices"].kind is port["devices"].kind \
+            is inspect.Parameter.KEYWORD_ONLY
+        for pkg in (ref_dsp, dsp):
+            assert issubclass(getattr(pkg, name), pkg.SweepExecutorBase)
+        assert EngineConfig(device="cpu", devices=1).devices == 1
+
+    @pytest.mark.parametrize("fn,ref", [
+        (core.GPBank.fit, ref_core.GPBank.fit),
+        (core.batched_posterior, ref_core.batched_posterior),
+        (core.ForecastBank, ref_core.ForecastBank),
+        (core.ForecastBank.from_kinds, ref_core.ForecastBank.from_kinds)])
+    def test_banks_take_devices(self, fn, ref):
+        a = inspect.signature(fn).parameters["devices"]
+        b = inspect.signature(ref).parameters["devices"]
+        assert a.default is b.default is None and a.kind is b.kind
+
     def test_demeter_controller_signature(self):
         params = inspect.signature(DemeterController).parameters
         ref = inspect.signature(ref_core.DemeterController).parameters
@@ -112,7 +137,8 @@ class TestApiSnapshot:
 
     @pytest.mark.parametrize("impl", [BatchedSweepExecutor,
                                       FusedSweepExecutor,
-                                      ScalarSweepExecutor, ScalarAdapter])
+                                      ScalarSweepExecutor,
+                                      ShardedSweepExecutor, ScalarAdapter])
     def test_batch_executor_protocol_members(self, impl):
         for method in ("n_scenarios", "cmax_config", "current_config",
                        "reconfigure", "observe", "observe_one", "profile",
@@ -190,7 +216,8 @@ class TestEngineConfig:
     def test_run_sweep_rejects_unknown_engine_with_listing(self):
         spec = ScenarioSpec(trace=make_trace("diurnal", duration_s=60.0))
         with pytest.raises(ValueError, match=r"available: \('batched', "
-                                             r"'fused', 'scalar'\)"), \
+                                             r"'fused', 'scalar', "
+                                             r"'sharded'\)"), \
                 warnings.catch_warnings():
             warnings.simplefilter("ignore", DeprecationWarning)
             run_sweep([spec], engine="gpu")

@@ -13,7 +13,9 @@ detector bank, one short ``run_experiment``, an 8-job fleet soak (and the
 obs counters against the kernels' launch counters), small serving
 runs (dense, mamba2, zamba2, deepseek-moe, deepseek-v2-lite), hubert's
 ``encode`` and pixtral's ``train_loss`` on the card against the same runs
-on the CPU.
+on the CPU, and the contract probes on the card (no host sync under the
+sync debug mode; K2's interval, K1's chunk and the GP fit kernel replayed
+bit-equal from a CUDA graph).
 ``chip_smoke.py`` does the same at the main paths' full size.
 """
 import copy
@@ -1286,3 +1288,63 @@ def test_gp_fit_kernel_matches_plain_version(cuda):
     assert float(((fk - fp).abs() / fp.abs().clamp_min(1.0)).max()) < 1e-3
     _, counts, _ = gp_lbfgs(x, y, mask, t0, restarts=R, max_iter=60)
     assert ((counts >= 1) & (counts <= 60) & (evals > counts)).all()
+
+
+def _card_probes():
+    """Every probe of the port's five registries, built on the card."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent
+                           / "scripts"))
+    from check_contracts_torch import registries
+    out = {}
+    for reg in registries():
+        for name in reg:
+            probes = reg.contract_for(name)("cuda")
+            for p in probes if isinstance(probes, list) else [probes]:
+                out[p.contract.name] = p
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["engine:fused", "forecast backend:bank",
+                                  "kernel:gp-lbfgs"])
+def test_kernel_probe_replays_from_a_cuda_graph(cuda, name):
+    """K2's interval, K1's chunk and the GP fit kernel are captured in a
+    CUDA graph and replayed bit-equal to the eager call, launches counted
+    on the card."""
+    from repro_torch.analysis.contracts import run_probe
+    probe = _card_probes()[name]
+    assert probe.contract.graph_capturable and probe.device == "cuda"
+    report = run_probe(probe)
+    assert report.ok, report.summary()
+    assert report.skipped == ()
+    assert report.launches == dict(probe.contract.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["engine:fused", "kernel:fused-tick",
+                                  "engine:sharded", "fit backend:bank",
+                                  "kernel:gp-lbfgs", "forecast backend:bank",
+                                  "kernel:rls-rank1-update",
+                                  "detector backend:bank",
+                                  "fleet backend:ingest"])
+def test_probe_never_syncs_on_the_card(cuda, name):
+    """No host sync in any device probe, also under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.analysis.contracts import run_probe
+    probe = _card_probes()[name]
+    assert probe.contract.forbid_host_sync
+    report = run_probe(probe)
+    assert report.ok, report.summary()
+
+
+@pytest.mark.cuda
+def test_sync_debug_mode_catches_a_host_read(cuda):
+    from repro_torch.analysis.contracts import (CompilationContract,
+                                                check_contract)
+    x = torch.ones(4, device="cuda")
+    report = check_contract(lambda t: t * float(t.sum()), (x,),
+                            CompilationContract(), device="cuda")
+    assert not report.ok
+    assert {v.field for v in report.violations} == {"forbid_host_sync"}

@@ -96,7 +96,8 @@ def test_port_registries_are_its_own():
                                            SIM_ENGINES)
     from repro_torch.core import EngineConfig
     EngineConfig(device="cpu")           # registers every built-in
-    assert SIM_ENGINES.available() == ("batched", "fused", "scalar")
+    assert SIM_ENGINES.available() == ("batched", "fused", "scalar",
+                                      "sharded")
     assert CONTROLLERS.available() == ("demeter", "ds2", "reactive", "static")
     assert FORECASTERS.available() == ("arima", "holt", "seasonal")
     assert FIT_BACKENDS.available() == ("bank", "scalar")
