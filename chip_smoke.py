@@ -203,7 +203,21 @@ Phases, each of which exits non-zero on failure:
     host partitions (``REPRO_TORCH_HOST_DEVICES=4``) equals the batched
     engine at rtol 1e-9; with 2 cards or more, the fused engine and a
     Demeter grid over 2 cards equal 1 card bit for bit, else the phase
-    prints that this leg did not run.
+    prints that this leg did not run;
+32. the model-parallel mesh: a one-rank NCCL process group; qwen2-7b at
+    full width in bf16 on the kernel route serves 4 prompts (16 decode
+    steps) inside ``sharding_context`` on a (1, 1) mesh and outside it:
+    equal tokens and K3 launches (16 x 28 each); ``ring_allreduce`` and
+    ``hierarchical_allreduce`` on one rank return their input bit for bit;
+    ``ElasticTrainer(mesh=...)`` on deepseek-7b at phase 28's width (2
+    layers, bf16, the default ``TrainConfig``) on a (pod=1, data=1) mesh,
+    5 steps with a checkpoint after 4, a failure, the restore onto
+    ``surviving_mesh`` (data=1) and the replay: every loss within 1e-5 of
+    the meshless trainer's (bit for bit is expected on one rank and is
+    printed), both median step times; with 2 cards or more, 2 NCCL ranks
+    hold the ring against ``all_reduce`` and the sharded smoke
+    ``train_loss`` against one rank's, else the phase prints that this leg
+    did not run. The group is destroyed at the end.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
@@ -3630,6 +3644,306 @@ def mesh_phase(device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the model-parallel mesh
+# ---------------------------------------------------------------------------
+
+#: Phase 32 (a): qwen2-7b served at full width inside a sharding context on a
+#: (1, 1) mesh and outside it: 4 prompts of 64-256 tokens, 16 decode steps
+MESH_SERVE = dict(slots=4, max_len=1024, prompts=(64, 256), decode_steps=16)
+#: (b): the sharded trainer at phase 28's width (2 layers, bf16) on the
+#: default TrainConfig: 5 steps with a checkpoint after step 4, a failure,
+#: the restore onto surviving_mesh and the replay of step 4 (6 step events)
+MESH_TRAIN_CKPT, MESH_TRAIN_FAIL = 4, 5
+MESH_TRAIN_CKPT_DIR = REPO / "build" / "mesh_ckpt"
+#: (b): the sharded losses against the meshless ones, relative; on one rank
+#: every shard is the whole tensor and the same kernels run, so bit for
+#: bit is expected
+MESH_TRAIN_BAR = 1e-5
+#: (d): the 2-card legs against one rank: float32 rounding of the sum of
+#: two buffers, and of the sharded loss
+MESH_TWO_CARD_BAR = 1e-5
+
+
+def free_port() -> int:
+    """A free TCP port on this host, for a process group's rendezvous."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def init_group(device: str, rank: int = 0, world: int = 1,
+               port: int = 0) -> None:
+    """A process group on this host: NCCL on the cards (rank on card
+    ``rank``), gloo on the CPU."""
+    import torch
+    import torch.distributed as dist
+    kw = {}
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{port or free_port()}", rank=rank,
+        world_size=world, **kw)
+
+
+def mesh_decode(mesh, device: str, arch: str = SERVE_ARCH) -> dict:
+    """Phase 32 (a): ``arch`` at full width on the kernel route served
+    outside a sharding context and inside one on ``mesh``: the greedy
+    tokens and K3's launches must be equal (on one rank the parameters are
+    plain tensors, the hooks return their inputs and K3 launches as
+    before)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding_context
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    cfg = get_config(arch)
+    model = init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(32)
+    lo, hi = MESH_SERVE["prompts"]
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in rng.integers(lo, hi + 1, MESH_SERVE["slots"])]
+    runs = {}
+    for label, ctx in (("outside", contextlib.nullcontext()),
+                       ("inside", sharding_context(mesh))):
+        eng = ServingEngine(cfg, model, n_slots=MESH_SERVE["slots"],
+                            max_len=MESH_SERVE["max_len"], device=device)
+        k3.decode_attention.launches = 0
+        with ctx:
+            wall, _ = serve(eng, prompts, MESH_SERVE["decode_steps"] + 1)
+        runs[label] = {
+            "wall_s": wall, "decode_steps": eng.metrics.decode_steps,
+            "launches": k3.decode_attention.launches,
+            "tokens": [list(map(int, eng.requests[f"r{i}"].output))
+                       for i in range(len(prompts))]}
+        del eng
+    a, b = runs["outside"], runs["inside"]
+    if a["tokens"] != b["tokens"]:
+        fail(f"phase 32: decode inside a sharding context parts from the "
+             f"decode outside it: {b['tokens']} vs {a['tokens']}")
+    want = MESH_SERVE["decode_steps"] * cfg.n_layers
+    if device == "cuda" and not a["launches"] == b["launches"] == want:
+        fail(f"phase 32: K3 launched {b['launches']} times inside the "
+             f"context, {a['launches']} outside, expected {want}")
+    del model
+    return {"arch": arch, "layers": cfg.n_layers, "requests": len(prompts),
+            "decode_steps": b["decode_steps"],
+            "launches": {k: runs[k]["launches"] for k in runs},
+            "wall_s": {k: runs[k]["wall_s"] for k in runs},
+            "tokens_equal": True}
+
+
+def one_rank_collectives(device: str) -> dict:
+    """Phase 32 (c): ``ring_allreduce`` over each axis of a (1, 1) mesh and
+    ``hierarchical_allreduce`` over a (pod=1, data=1) mesh return their
+    input bit for bit."""
+    import torch
+    from repro_torch.distributed import hierarchical_allreduce, ring_allreduce
+    from repro_torch.launch.mesh import make_mesh
+    g = torch.Generator(device=device).manual_seed(32)
+    x = torch.randn(1000, 3, generator=g, device=device)
+    dm = make_mesh((1, 1), ("data", "model"), device=device)
+    pd = make_mesh((1, 1), ("pod", "data"), device=device)
+    outs = {f"ring over {a}": ring_allreduce(x, dm, a)
+            for a in ("data", "model")}
+    outs["hierarchical"] = hierarchical_allreduce(x, pd)
+    bad = [k for k, y in outs.items() if not same_bits(y, x)]
+    if bad:
+        fail(f"phase 32: {bad} on one rank differ from their input")
+    return {"checked": sorted(outs), "bit_equal": True}
+
+
+def sharded_trainer(device: str, arch: str = TRAIN_ARCH,
+                    layers: int = TRAIN_LAYERS, seq: int = TRAIN_SEQ) -> dict:
+    """Phase 32 (b): ``ElasticTrainer`` on a (pod=1, data=1) mesh against
+    the meshless trainer on the default ``TrainConfig``: the
+    meshless one runs MESH_TRAIN_FAIL steps; the sharded one the same
+    steps with a checkpoint after MESH_TRAIN_CKPT, then a failure, the
+    restore onto ``surviving_mesh`` (the pod axis dropped) and the replay.
+    Every loss within MESH_TRAIN_BAR of the meshless run's; the median step
+    times of both (the DTensor dispatch's cost on one rank)."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import surviving_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import (DataConfig, ElasticTrainer, FTConfig,
+                                      TrainConfig)
+    cfg = get_config(arch).scaled(n_layers=layers,
+                                  attention_impl="reference")
+    dc = DataConfig(batch_per_host=TRAIN_BATCH, seq_len=seq)
+    shutil.rmtree(MESH_TRAIN_CKPT_DIR, ignore_errors=True)
+    ft = FTConfig(checkpoint_dir=str(MESH_TRAIN_CKPT_DIR),
+                  checkpoint_interval_steps=MESH_TRAIN_CKPT)
+    plain = ElasticTrainer(cfg, TrainConfig(), dc,
+                           FTConfig(checkpoint_dir=str(MESH_TRAIN_CKPT_DIR),
+                                    checkpoint_interval_steps=10 ** 9),
+                           device=device)
+    plain.run(MESH_TRAIN_FAIL)
+    base = [(e.step, e.loss, e.duration_s) for e in plain.events]
+    del plain
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # data parallel, the weights sharded on "data" by the rules: DTensor in
+    # the card's PyTorch 2.11 cannot flatten two dimensions of which a later
+    # one is sharded, which the plain attention's score product does where
+    # its heads shard on "model" (2.13 can). Two axes, not three: DTensor's
+    # first pass over a step's ops (its sharding propagation, cached after)
+    # grows steeply with the mesh's axes (on the CPU a 1-axis mesh's first
+    # step took 1.8 s, 2 axes' 16.6 s, 3 axes' more than 90 s)
+    mesh = make_mesh((1, 1), ("pod", "data"), device=device)
+    tr = ElasticTrainer(cfg, TrainConfig(), dc, ft, mesh=mesh, device=device)
+    tr.run(MESH_TRAIN_FAIL)
+    tr.inject_failure()
+    t0 = time.perf_counter()
+    tr._recover(new_mesh=surviving_mesh(mesh))
+    restore_s = time.perf_counter() - t0
+    tr.run(1)
+    events = [(e.step, e.loss, e.duration_s) for e in tr.events]
+    shutil.rmtree(MESH_TRAIN_CKPT_DIR, ignore_errors=True)
+    steps = [s for s, _, _ in events]
+    want = list(range(MESH_TRAIN_FAIL)) + [MESH_TRAIN_CKPT]
+    if steps != want or tr.mesh.mesh_dim_names != ("data",):
+        fail(f"phase 32: sharded trainer events {steps} on "
+             f"{tr.mesh.mesh_dim_names}, expected {want} on (data,)")
+    first = {s: loss for s, loss, _ in base}
+    rel = [abs(loss - first[s]) / abs(first[s]) for s, loss, _ in events]
+    if not all(math.isfinite(loss) for _, loss, _ in events) \
+            or max(rel) > MESH_TRAIN_BAR:
+        fail(f"phase 32: sharded losses {events} against the meshless "
+             f"{base}: {max(rel)} > {MESH_TRAIN_BAR}")
+    del tr
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"arch": arch, "layers": layers, "dtype": cfg.dtype,
+            "batch": TRAIN_BATCH, "seq": seq, "steps": steps,
+            "losses": [loss for _, loss, _ in events],
+            "meshless_losses": [loss for _, loss, _ in base],
+            "max_rel_diff": max(rel),
+            "bit_equal": all(loss == first[s] for s, loss, _ in events),
+            "first_step_s": events[0][2],
+            "replay_step_s": events[-1][2],
+            "step_s_median": statistics.median(
+                d for _, _, d in events[1:MESH_TRAIN_FAIL]),
+            "meshless_step_s_median": statistics.median(
+                d for _, _, d in base[1:]),
+            "restore_s": restore_s, "bar": MESH_TRAIN_BAR}
+
+
+def two_card_worker(rank: int, world: int, port: int, device: str,
+                    out: str) -> None:
+    """Phase 32 (d), one rank: the ring against ``dist.all_reduce`` over a
+    (data=2) mesh, and deepseek-7b's smoke ``train_loss`` (float32, TF32
+    off) on it against this rank's unsharded one (data parallel: see
+    :func:`sharded_trainer` on tensor parallelism under PyTorch 2.11);
+    writes the differences to ``<out>.<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed import (rescale, ring_allreduce,
+                                         set_parameters, sharding_context)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.training import DataConfig, make_pipeline
+    from repro_torch.training.train import parameters
+    init_group(device, rank, world, port)
+    try:
+        dev = torch.device(device, rank) if device == "cuda" else "cpu"
+        g = torch.Generator(device=dev).manual_seed(rank)
+        x = torch.randn(4099, generator=g, device=dev)
+        mesh = make_mesh((world,), ("data",), device=device)
+        ring = ring_allreduce(x, mesh, "data")
+        want = x.clone()
+        dist.all_reduce(want)
+        with NoTF32():
+            cfg = smoke_config(TRAIN_ARCH).scaled(
+                attention_impl="reference", dtype="float32")
+            model = init_params(cfg, seed=0, device=device)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     make_pipeline(cfg, DataConfig(batch_per_host=4,
+                                                   seq_len=32))
+                     .batch(0).items()}
+            plain = float(train_loss(model, batch)[0])
+            set_parameters(model, rescale(parameters(model), mesh))
+            with sharding_context(mesh):
+                sharded = float(train_loss(model, batch)[0].full_tensor())
+        with open(f"{out}.{rank}.json", "w") as f:
+            json.dump({"ring_err_of_scale": largest_rel(ring, want),
+                       "loss_plain": plain, "loss_sharded": sharded}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_card_leg(device: str, world: int = 2) -> dict:
+    """Phase 32 (d): :func:`two_card_worker` on ``world`` processes, one a
+    card (or gloo processes on the CPU); each rank's ring within
+    MESH_TWO_CARD_BAR of ``dist.all_reduce`` and its sharded loss of its
+    unsharded one."""
+    import torch.multiprocessing as mp
+    out = str(REPO / "build" / "two_card")
+    (REPO / "build").mkdir(exist_ok=True)
+    mp.spawn(two_card_worker, args=(world, free_port(), device, out),
+             nprocs=world, join=True)
+    res = []
+    for r in range(world):
+        with open(f"{out}.{r}.json") as f:
+            res.append(json.load(f))
+    for r, x in enumerate(res):
+        rel = abs(x["loss_sharded"] - x["loss_plain"]) / abs(x["loss_plain"])
+        if x["ring_err_of_scale"] > MESH_TWO_CARD_BAR \
+                or rel > MESH_TWO_CARD_BAR:
+            fail(f"phase 32: rank {r} of {world}: {x}")
+    return {"ranks": world, "results": res}
+
+
+def model_parallel_phase(device: str = "cuda", decode_arch: str = SERVE_ARCH,
+                         train_seq: int = TRAIN_SEQ) -> dict:
+    """Phase 32: the model-parallel mesh on this machine. A one-rank
+    process group (NCCL on the card) and (a) the serving decode inside a
+    sharding context on a (1, 1) mesh equal to the decode outside it,
+    tokens and K3 launches; (c) the explicit collectives on one rank
+    return their input; (b) the sharded elastic trainer against the
+    meshless one, restored onto ``surviving_mesh``; (d) with two cards or
+    more, 2 NCCL ranks: the ring against ``all_reduce`` and the sharded
+    ``train_loss`` against one rank's, else a line saying that this leg did
+    not run. The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    init_group(device)
+    try:
+        out = {"device": device}
+        t0 = time.perf_counter()
+        out["decode"] = mesh_decode(make_mesh((1, 1), ("data", "model"),
+                                              device=device), device,
+                                    decode_arch)
+        out["decode_s"] = time.perf_counter() - t0
+        out["collectives"] = one_rank_collectives(device)
+        t0 = time.perf_counter()
+        out["trainer"] = sharded_trainer(device, seq=train_seq)
+        out["trainer_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    if cards >= 2:
+        out["two_cards"] = two_card_leg(device)
+    else:
+        out["two_cards"] = (f"did not run: this machine shows {cards} CUDA "
+                            f"device(s), the leg needs 2")
+        print(f"model-parallel mesh: the 2-card leg did not run: this "
+              f"machine shows {cards} CUDA device(s)", flush=True)
+    print("model-parallel mesh " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4011,6 +4325,16 @@ def main() -> int:
     t_phase = time.perf_counter()
     mesh_phase()
     print(f"phase 31 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- 32. the model-parallel mesh -----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    model_parallel_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 32 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t_phase:.1f} s)")
 
     # -- summary lines: each kernel's launches on its main path and its

@@ -35,8 +35,9 @@ def _dequantize_leaf(q: torch.Tensor, scale: torch.Tensor, shape,
 
 
 def ef_init(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Zero float32 error-feedback buffers shaped like the gradients."""
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero float32 error-feedback buffers shaped (and, for a DTensor,
+    placed) like the gradients."""
+    return {n: torch.zeros_like(p, dtype=torch.float32)
             for n, p in params.items()}
 
 

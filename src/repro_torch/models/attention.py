@@ -17,6 +17,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..distributed.sharding import merge_last, shard, split_dim
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import Dense, apply_rope
@@ -82,7 +83,7 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    qg = q.reshape(b, sq, hkv, g, hd)
+    qg = split_dim(q, 2, hkv, g)
     # 1/sqrt(hd) rounded to float32, as the reference (and K3) computes it
     scale = (1.0 / torch.sqrt(torch.tensor(float(hd)))).item()
     scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
@@ -142,11 +143,14 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``cache_index`` (0 when None) before the queries attend to the first
     ``cache_index + s`` positions; None attends within ``x`` only.
     """
-    b, s, _ = x.shape
+    s = x.shape[1]
     hd = cfg.resolved_head_dim
-    q = p.wq(x).reshape(b, s, cfg.n_heads, hd)
-    k = p.wk(x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = p.wv(x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_dim(p.wq(x), -1, cfg.n_heads, hd)
+    k = split_dim(p.wk(x), -1, cfg.n_kv_heads, hd)
+    v = split_dim(p.wv(x), -1, cfg.n_kv_heads, hd)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -159,7 +163,7 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     kv_valid_len=idx + s)
     else:
         out = _sdpa(cfg, q, k, v, causal=cfg.causal)
-    return p.wo(out.reshape(b, s, cfg.n_heads * hd))
+    return p.wo(merge_last(out))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -20,6 +20,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..distributed.sharding import shard
+
 
 def _normal(shape, scale: float, *, generator: torch.Generator,
             dtype: torch.dtype, device) -> nn.Parameter:
@@ -156,7 +158,7 @@ def mlp(x: torch.Tensor, kind: str, up: Dense, down: Dense,
         h = gelu_tanh(up(x))
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
-    return down(h)
+    return down(shard(h, "batch", None, "mlp"))
 
 
 class MLP(nn.Module):
@@ -195,7 +197,10 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Token-mean cross-entropy in float32, with an optional z-loss
     (``z_loss * lse**2``) and a mask (the masked sum over
     ``max(sum(mask), 1)``); the reference's ``softmax_cross_entropy``."""
-    logits = logits.float()
+    # DTensor has no gather along a sharded vocab (inside a sharding
+    # context the logits shard it): replicate the vocab first, an identity
+    # outside a context
+    logits = shard(logits, "batch", None, None).float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = lse - ll

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import merge_last, shard, split_dim
 from ..kernels import ops as kops
 from ..kernels.ref import ssd_scan_ref
 from .attention import Index
@@ -155,8 +156,8 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *,
     SSD state, whatever the cache held; a one-token call otherwise
     continues from the cache (decode). A multi-token call at a cursor > 0
     raises."""
-    s, d_in, n_heads, gn = _dims(cfg)
-    bsz, seq, _ = x.shape
+    s, _, n_heads, gn = _dims(cfg)
+    seq = x.shape[1]
     fresh = _starts_sequence(cache_index)
     if cache is not None and seq > 1 and not fresh:
         raise NotImplementedError(
@@ -176,9 +177,10 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *,
                                cache.conv_bc if keep else None)
 
     half = gn // 2
-    xs = xr.reshape(bsz, seq, n_heads, s.head_dim)
-    bs = bc[..., :half].reshape(bsz, seq, s.n_groups, s.d_state)
-    cs = bc[..., half:].reshape(bsz, seq, s.n_groups, s.d_state)
+    xs = shard(split_dim(xr, -1, n_heads, s.head_dim),
+               "batch", None, "ssm_heads", None)
+    bs = split_dim(bc[..., :half], -1, s.n_groups, s.d_state)
+    cs = split_dim(bc[..., half:], -1, s.n_groups, s.d_state)
 
     if cache is not None and seq == 1:
         if not keep:
@@ -208,7 +210,8 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *,
         cache.conv_bc.copy_(new_cbc)
 
     y = y + xs * p.d_skip[:, None].to(y.dtype)
-    y = y.reshape(bsz, seq, d_in)
+    y = shard(y, "batch", None, "ssm_heads", None)
+    y = merge_last(y)
     y = rmsnorm(y * silu(z), p.norm.scale)
     return p.out_proj(y)
 

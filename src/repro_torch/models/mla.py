@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..distributed.sharding import merge_last, split_dim
 from .attention import NEG_INF, Index, attention_mask, cache_update
 from .config import ModelConfig
 from .layers import Dense, Norm, apply_rope
@@ -66,9 +67,8 @@ def _scale(cfg: ModelConfig) -> float:
 def _queries(p: MLA, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor):
     m = cfg.mla
-    b, s, _ = x.shape
     q = p.wuq(p.q_norm(p.wdq(x))) if m.q_lora_rank else p.wq(x)
-    q = q.reshape(b, s, cfg.n_heads, m.nope_head_dim + m.rope_head_dim)
+    q = split_dim(q, -1, cfg.n_heads, m.nope_head_dim + m.rope_head_dim)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -99,8 +99,8 @@ def _naive(p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope, *,
     m = cfg.mla
     b, skv = c_kv.shape[0], c_kv.shape[1]
     h = cfg.n_heads
-    k_nope = p.wuk(c_kv).reshape(b, skv, h, m.nope_head_dim)
-    v = p.wuv(c_kv).reshape(b, skv, h, m.v_head_dim)
+    k_nope = split_dim(p.wuk(c_kv), -1, h, m.nope_head_dim)
+    v = split_dim(p.wuv(c_kv), -1, h, m.v_head_dim)
     scores = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
               + torch.einsum("bshd,btd->bhst", q_rope.float(),
                              k_rope.float())) * _scale(cfg)
@@ -119,7 +119,7 @@ def _absorbed_decode(p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv,
     m = cfg.mla
     b, _, h, _ = q_nope.shape
     dtype = c_kv.dtype
-    wuk = p.wuk.w.reshape(m.kv_lora_rank, h, m.nope_head_dim)
+    wuk = split_dim(p.wuk.w, 1, h, m.nope_head_dim)
     # fold W_uk into the query: q_c = q_nope W_uk^T, in latent space
     q_c = torch.einsum("bshd,chd->bshc", q_nope.float(),
                        wuk.float()).to(q_nope.dtype)           # (B,1,H,rank)
@@ -131,7 +131,7 @@ def _absorbed_decode(p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv,
     w = _masked_softmax(scores, mask, dtype)
     ctx = torch.einsum("bhst,btc->bshc", w.float(),
                        c_kv.float()).to(dtype)                 # latent context
-    wuv = p.wuv.w.reshape(m.kv_lora_rank, h, m.v_head_dim)
+    wuv = split_dim(p.wuv.w, 1, h, m.v_head_dim)
     return torch.einsum("bshc,chd->bshd", ctx.float(),
                         wuv.float()).to(dtype)
 
@@ -146,7 +146,7 @@ def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor,
     positions of each row, a longer input through the naive path over the
     first ``cache_index + s``. Without a cache, ``x`` attends causally to
     itself."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     q_nope, q_rope = _queries(p, cfg, x, positions)
     c_kv, k_rope = _latents(p, cfg, x, positions)
     if cache is not None:
@@ -161,7 +161,7 @@ def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor,
                          q_positions=positions, kv_valid_len=idx + s)
     else:
         out = _naive(p, cfg, q_nope, q_rope, c_kv, k_rope)
-    return p.wo(out.reshape(b, s, -1))
+    return p.wo(merge_last(out))
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import shard
 from ..kernels import ops as kops
 from ..kernels.grouped_matmul import BLOCK_MS, sort_assignments
 from .config import ModelConfig
@@ -126,7 +127,9 @@ def _routed_buffer(ex: Experts, kind: str, xt, flat_e, flat_pos, keep,
     buf.index_put_((flat_e, safe_pos),
                    xt[token_idx] * keep[:, None].to(xt.dtype),
                    accumulate=True)
-    h = _expert_ffn(ex, buf, kind)
+    # sharding E on "model" is expert parallelism (an all-to-all here)
+    buf = shard(buf, "experts", "expert_cap", None)
+    h = shard(_expert_ffn(ex, buf, kind), "experts", "expert_cap", None)
     return h[flat_e, safe_pos] * flat_w[:, None].to(xt.dtype)
 
 

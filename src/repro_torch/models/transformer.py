@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.executor import resolve_device
+from ..distributed.sharding import merge_last, shard, split_dim
 from .attention import (Attention, Index, attention_apply, cache_update,
                         init_kv_cache, sdpa_reference)
 from .config import ModelConfig
@@ -167,12 +168,14 @@ def shared_block_apply(p: SharedBlock, cfg: ModelConfig, x: torch.Tensor,
     dd = 2 * cfg.d_model
     nh = hcfg.shared_n_heads
     hd = dd // nh
-    b, s, _ = x.shape
+    s = x.shape[1]
     z = torch.cat([x, emb0], dim=-1)
     h = p.norm1(z)
-    q = apply_rope(p.wq(h).reshape(b, s, nh, hd), positions, cfg.rope_theta)
-    k = apply_rope(p.wk(h).reshape(b, s, nh, hd), positions, cfg.rope_theta)
-    v = p.wv(h).reshape(b, s, nh, hd)
+    q = apply_rope(split_dim(p.wq(h), -1, nh, hd), positions,
+                   cfg.rope_theta)
+    k = apply_rope(split_dim(p.wk(h), -1, nh, hd), positions,
+                   cfg.rope_theta)
+    v = split_dim(p.wv(h), -1, nh, hd)
     if cache is not None:
         idx = cache_index if cache_index is not None else 0
         ck, cv = cache
@@ -182,7 +185,7 @@ def shared_block_apply(p: SharedBlock, cfg: ModelConfig, x: torch.Tensor,
                              kv_valid_len=idx + s)
     else:
         out = sdpa_reference(q, k, v, causal=True)
-    z = z + p.wo(out.reshape(b, s, nh * hd))
+    z = z + p.wo(merge_last(out))
     z = z + p.ffn(p.norm2(z))
     return x + p.proj(z)
 
@@ -279,9 +282,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     """A randomly initialised model of ``cfg`` on ``device`` (the card
     unless the caller passes ``device="cpu"``), drawn from a
     ``torch.Generator`` seeded with ``seed`` on that device; ``dtype``
-    defaults to ``cfg.dtype``."""
-    device = resolve_device(device)
+    defaults to ``cfg.dtype``. ``device="meta"`` builds the shapes alone
+    (the dry-run's parameter structs): no generator, nothing drawn or
+    allocated."""
     dtype = dtype or getattr(torch, cfg.dtype)
+    if torch.device(device).type == "meta":
+        with torch.no_grad():
+            return Transformer(cfg, generator=None, dtype=dtype,
+                               device="meta")
+    device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         return Transformer(cfg, generator=generator, dtype=dtype,
@@ -337,6 +346,7 @@ def _forward(model: Transformer, tokens: Optional[torch.Tensor] = None, *,
             pp = gelu_tanh(f.proj1(patches))
             pp = f.proj2(pp).to(h.dtype)
             h = torch.cat([pp, h[:, pp.shape[1]:]], dim=1)
+    h = shard(h, "batch", None, "embed")
     b, s = h.shape[:2]
     offset = cache_index if cache_index is not None else 0
     if isinstance(offset, torch.Tensor) and offset.dim() == 1:
@@ -381,9 +391,9 @@ def _mamba_layer(cache: Cache, *layer: int) -> MambaCache:
 
 
 def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
-    if model.lm_head is None:
-        return unembed(model.embed.table, h)
-    return dense(h, model.lm_head.w, model.lm_head.b)
+    logits = (unembed(model.embed.table, h) if model.lm_head is None
+              else dense(h, model.lm_head.w, model.lm_head.b))
+    return shard(logits, "batch", None, "vocab")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -524,7 +534,9 @@ def _chunked_ce(model: Transformer, h: torch.Tensor, labels: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, h.shape[1], c):
-        logits = logits_from_hidden(model, h[:, i:i + c]).float()
+        # replicated vocab for the gather, as in softmax_cross_entropy
+        logits = shard(logits_from_hidden(model, h[:, i:i + c]),
+                       "batch", None, None).float()
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels[:, i:i + c, None].long())[..., 0]
         m = (torch.ones_like(lse) if mask is None

@@ -9,8 +9,14 @@ manifest. Saves copy every leaf to the host before :meth:`save` returns,
 then a writer thread writes them to ``<path>.tmp`` and renames it into
 place (the train loop keeps stepping while the files are written) and keeps
 the newest ``keep`` checkpoints. :meth:`restore` reads a checkpoint back
-onto the devices of a ``like`` tree: a restart on another device is a
-restore (see :func:`repro_torch.distributed.elastic.rescale`).
+onto the devices of a ``like`` tree, or onto a mesh's shardings: a restart
+on another device or mesh is a restore (see
+:func:`repro_torch.distributed.elastic.rescale`).
+
+A DTensor leaf is saved as its global value (``full_tensor()``, as the
+reference writes the global ``jax.Array``), a collective that every rank
+of its mesh makes; where ranks share the directory, only the manager made
+with ``writer=True`` writes.
 """
 from __future__ import annotations
 
@@ -56,11 +62,29 @@ def _unflatten(like, leaves: List[Any]):
 
 
 def _to_host(leaf):
-    """A host copy of one leaf: a CPU tensor for a tensor, an array for
-    anything else."""
+    """A host copy of one leaf: a CPU tensor for a tensor (the global
+    value of a DTensor), an array for anything else."""
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
+
+
+def _shardings_like(like, shardings) -> List[Any]:
+    """``shardings`` (a tree that follows ``like`` as far as it goes: a
+    missing key or None leaves the subtree unsharded) as one entry per leaf
+    of ``like``, in :func:`_flatten`'s order."""
+    if isinstance(like, dict):
+        return [s for k in sorted(like) for s in _shardings_like(
+            like[k], shardings.get(k) if isinstance(shardings, dict)
+            else None)]
+    if isinstance(like, (list, tuple)):
+        return [s for i, item in enumerate(like) for s in _shardings_like(
+            item, shardings[i] if isinstance(shardings, (list, tuple))
+            else None)]
+    return [shardings]
 
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
@@ -76,9 +100,11 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 class CheckpointManager:
     """Asynchronous checkpoint writer and restorer."""
 
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(self, directory: str, *, keep: int = 3,
+                 writer: bool = True):
         self.directory = directory
         self.keep = keep
+        self.writer = writer
         os.makedirs(directory, exist_ok=True)
         self._queue: "queue.Queue" = queue.Queue()
         self._pending = 0
@@ -90,9 +116,12 @@ class CheckpointManager:
     def save(self, step: int, tree, *, blocking: bool = False) -> str:
         """Snapshot ``tree`` (dicts and lists of tensors or arrays) at
         ``step``. Every leaf is copied to the host here; the files are
-        written on the writer thread unless ``blocking``."""
+        written on the writer thread unless ``blocking``; a manager that is
+        not the writer gathers its DTensor leaves and writes nothing."""
         host = [_to_host(leaf) for leaf in _flatten(tree)]
         path = os.path.join(self.directory, f"step_{step:010d}")
+        if not self.writer:
+            return path
         with self._lock:
             self._pending += 1
         self._queue.put((path, step, host))
@@ -152,11 +181,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None, *, like=None,
-                device: str = "cuda") -> Tuple[int, Any]:
+                device: str = "cuda", shardings=None) -> Tuple[int, Any]:
         """Load checkpoint ``step`` (the newest by default) in the structure
         of ``like``: each leaf goes to the device of its ``like`` tensor, or
         to ``device`` (the card unless the caller passes ``"cpu"``) where
-        the ``like`` leaf is not a tensor."""
+        the ``like`` leaf is not a tensor. ``shardings`` (a tree over
+        ``like``'s of :class:`~repro_torch.distributed.mesh.NamedSharding`,
+        see :func:`_shardings_like`) places a leaf as a DTensor on its
+        sharding's mesh instead (``distribute_tensor``: every rank of that
+        mesh restores)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -172,6 +205,7 @@ class CheckpointManager:
         if manifest["n_leaves"] != len(like_leaves):
             raise ValueError(f"checkpoint {step} holds {manifest['n_leaves']}"
                              f" leaves, `like` has {len(like_leaves)}")
+        placed = _shardings_like(like, shardings)
         leaves = []
         for i, ref in enumerate(like_leaves):
             name = f"leaf_{i:05d}"
@@ -179,6 +213,12 @@ class CheckpointManager:
             want = manifest["dtypes"][name]
             if want in _RAW:
                 t = t.view(_RAW[want])
+            if placed[i] is not None:
+                from torch.distributed.tensor import distribute_tensor
+                sh = placed[i]
+                leaves.append(distribute_tensor(
+                    t.to(sh.mesh.device_type), sh.mesh, sh.placements))
+                continue
             dev = ref.device if isinstance(ref, torch.Tensor) else fallback
             leaves.append(t.to(dev))
         return step, _unflatten(like, leaves)

@@ -43,9 +43,9 @@ def schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
-    """Zero float32 moments beside each parameter, and step 0 (int32)."""
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32,  # noqa
-                                    device=p.device)
+    """Zero float32 moments beside each parameter (a DTensor's placed as
+    it is), and step 0 (int32)."""
+    zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa
                      for n, p in params.items()}
     dev = next(iter(params.values())).device
     return {"m": zeros(), "v": zeros(),

@@ -13,11 +13,13 @@ detector bank, one short ``run_experiment``, an 8-job fleet soak (and the
 obs counters against the kernels' launch counters), small serving
 runs (dense, mamba2, zamba2, deepseek-moe, deepseek-v2-lite), hubert's
 ``encode`` and pixtral's ``train_loss`` on the card against the same runs
-on the CPU, and the contract probes on the card (no host sync under the
+on the CPU, the contract probes on the card (no host sync under the
 sync debug mode; K2's interval, K1's chunk and the GP fit kernel replayed
-bit-equal from a CUDA graph).
+bit-equal from a CUDA graph), and on a one-rank NCCL group a decode inside
+a sharding context against one outside it and the explicit collectives.
 ``chip_smoke.py`` does the same at the main paths' full size.
 """
+import contextlib
 import copy
 import math
 
@@ -1348,3 +1350,65 @@ def test_sync_debug_mode_catches_a_host_read(cuda):
                             CompilationContract(), device="cuda")
     assert not report.ok
     assert {v.field for v in report.violations} == {"forbid_host_sync"}
+
+
+@pytest.fixture(scope="module")
+def one_rank_group(tmp_path_factory):
+    """A one-rank NCCL process group on card 0 (destroyed after the
+    module)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL runs on the card")
+    import torch.distributed as dist
+    init = tmp_path_factory.mktemp("nccl") / "init"
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_decode_in_a_sharding_context_equals_decode_outside(cuda,
+                                                            one_rank_group):
+    """chip_smoke.py phase 32 (a) at the smoke size: on a (1, 1) mesh the
+    parameters are plain tensors, the hooks return their inputs and K3
+    launches as outside a context; the tokens are the same."""
+    from repro_torch.distributed import sharding_context
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    # one head of 64: a head dim K3 is built for
+    cfg = smoke_config("deepseek_7b").scaled(n_heads=1, n_kv_heads=1)
+    model = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(32)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 20, 13)]
+    runs = {}
+    for label, ctx in (("outside", None), ("inside", mesh)):
+        eng = ServingEngine(cfg, model, n_slots=3, max_len=48, device="cuda")
+        before = attn_mod.decode_attention.launches
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(f"r{i}", pr, max_tokens=6, arrival_s=0.0))
+        with (sharding_context(ctx) if ctx is not None
+              else contextlib.nullcontext()):
+            while eng.queue or eng.cache_mgr.active():
+                eng.admit()
+                eng.step()
+        runs[label] = ([eng.requests[f"r{i}"].output for i in range(3)],
+                       attn_mod.decode_attention.launches - before,
+                       eng.metrics.decode_steps)
+    assert runs["inside"] == runs["outside"]
+    assert runs["inside"][1] == runs["inside"][2] * cfg.n_layers > 0
+
+
+@pytest.mark.cuda
+def test_collectives_on_one_rank_return_their_input(cuda, one_rank_group):
+    """chip_smoke.py phase 32 (c): the ring over each axis of a (1, 1) mesh
+    and the hierarchical all-reduce over (pod=1, data=1) are the input."""
+    from repro_torch.distributed import hierarchical_allreduce, ring_allreduce
+    from repro_torch.launch.mesh import make_mesh
+    x = torch.randn(1001, 3, device="cuda")
+    dm = make_mesh((1, 1), ("data", "model"), device="cuda")
+    pd = make_mesh((1, 1), ("pod", "data"), device="cuda")
+    for axis in ("data", "model"):
+        assert torch.equal(ring_allreduce(x, dm, axis), x)
+    assert torch.equal(hierarchical_allreduce(x, pd), x)
