@@ -210,14 +210,21 @@ Phases, each of which exits non-zero on failure:
     equal tokens and K3 launches (16 x 28 each); ``ring_allreduce`` and
     ``hierarchical_allreduce`` on one rank return their input bit for bit;
     ``ElasticTrainer(mesh=...)`` on deepseek-7b at phase 28's width (2
-    layers, bf16, the default ``TrainConfig``) on a (pod=1, data=1) mesh,
-    5 steps with a checkpoint after 4, a failure, the restore onto
-    ``surviving_mesh`` (data=1) and the replay: every loss within 1e-5 of
-    the meshless trainer's (bit for bit is expected on one rank and is
-    printed), both median step times; with 2 cards or more, 2 NCCL ranks
-    hold the ring against ``all_reduce`` and the sharded smoke
-    ``train_loss`` against one rank's, else the phase prints that this leg
-    did not run. The group is destroyed at the end.
+    layers, bf16, the default ``TrainConfig``) on a (pod=1, data=1,
+    model=1) mesh, the reference's multi-pod axes (the regions of
+    ``distributed.sharding`` run the attention per head): 5 steps with a
+    checkpoint after 4, a failure, the restore onto ``surviving_mesh``
+    (the pod axis lost: (data, model)) and the replay: every loss within 1e-5 of the meshless trainer's (bit for
+    bit is expected on one rank and is printed), both median step times
+    and the first sharded step; with 2 cards or more, 2 NCCL ranks hold the
+    ring against ``all_reduce`` and the smoke ``train_loss`` on a (data=1,
+    model=2) mesh against one rank's, else the phase prints that this leg
+    did not run. The group is destroyed at the end;
+33. the dry-run on this machine's PyTorch: ``lower_cell(arch, "train_4k",
+    multi_pod=False, cfg_override=smoke_config(arch))`` for one smoke
+    config of every family (a fake 256-rank group on the CPU, in two
+    subprocesses, the cards hidden); each record is printed and every one
+    must be ``ok``.
 
 The last three lines of standard output are the ``nvidia-smi`` line, the
 ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
@@ -3760,13 +3767,15 @@ def one_rank_collectives(device: str) -> dict:
 
 def sharded_trainer(device: str, arch: str = TRAIN_ARCH,
                     layers: int = TRAIN_LAYERS, seq: int = TRAIN_SEQ) -> dict:
-    """Phase 32 (b): ``ElasticTrainer`` on a (pod=1, data=1) mesh against
-    the meshless trainer on the default ``TrainConfig``: the
+    """Phase 32 (b): ``ElasticTrainer`` on a (pod=1, data=1, model=1) mesh
+    against the meshless trainer on the default ``TrainConfig``: the
     meshless one runs MESH_TRAIN_FAIL steps; the sharded one the same
     steps with a checkpoint after MESH_TRAIN_CKPT, then a failure, the
-    restore onto ``surviving_mesh`` (the pod axis dropped) and the replay.
-    Every loss within MESH_TRAIN_BAR of the meshless run's; the median step
-    times of both (the DTensor dispatch's cost on one rank)."""
+    restore onto ``surviving_mesh`` (the reference's single-pod
+    (data, model) mesh: the pod axis lost) and the replay. Every loss within MESH_TRAIN_BAR of the meshless
+    run's; the median step times of both (the DTensor dispatch's cost on
+    one rank) and the first sharded step (DTensor's sharding
+    propagation)."""
     import shutil
     import torch
     from repro_torch.configs import get_config
@@ -3790,14 +3799,10 @@ def sharded_trainer(device: str, arch: str = TRAIN_ARCH,
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    # data parallel, the weights sharded on "data" by the rules: DTensor in
-    # the card's PyTorch 2.11 cannot flatten two dimensions of which a later
-    # one is sharded, which the plain attention's score product does where
-    # its heads shard on "model" (2.13 can). Two axes, not three: DTensor's
-    # first pass over a step's ops (its sharding propagation, cached after)
-    # grows steeply with the mesh's axes (on the CPU a 1-axis mesh's first
-    # step took 1.8 s, 2 axes' 16.6 s, 3 axes' more than 90 s)
-    mesh = make_mesh((1, 1), ("pod", "data"), device=device)
+    # the reference's multi-pod axes: the weights sharded on "data" and
+    # "model" by the rules, the heads on "model" in the attention's
+    # regions, the batch on "pod" and "data"
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device=device)
     tr = ElasticTrainer(cfg, TrainConfig(), dc, ft, mesh=mesh, device=device)
     tr.run(MESH_TRAIN_FAIL)
     tr.inject_failure()
@@ -3809,9 +3814,10 @@ def sharded_trainer(device: str, arch: str = TRAIN_ARCH,
     shutil.rmtree(MESH_TRAIN_CKPT_DIR, ignore_errors=True)
     steps = [s for s, _, _ in events]
     want = list(range(MESH_TRAIN_FAIL)) + [MESH_TRAIN_CKPT]
-    if steps != want or tr.mesh.mesh_dim_names != ("data",):
+    if steps != want or tr.mesh.mesh_dim_names != ("data", "model"):
         fail(f"phase 32: sharded trainer events {steps} on "
-             f"{tr.mesh.mesh_dim_names}, expected {want} on (data,)")
+             f"{tr.mesh.mesh_dim_names} after the restore, expected {want} "
+             f"on (data, model)")
     first = {s: loss for s, loss, _ in base}
     rel = [abs(loss - first[s]) / abs(first[s]) for s, loss, _ in events]
     if not all(math.isfinite(loss) for _, loss, _ in events) \
@@ -3839,11 +3845,11 @@ def sharded_trainer(device: str, arch: str = TRAIN_ARCH,
 
 def two_card_worker(rank: int, world: int, port: int, device: str,
                     out: str) -> None:
-    """Phase 32 (d), one rank: the ring against ``dist.all_reduce`` over a
-    (data=2) mesh, and deepseek-7b's smoke ``train_loss`` (float32, TF32
-    off) on it against this rank's unsharded one (data parallel: see
-    :func:`sharded_trainer` on tensor parallelism under PyTorch 2.11);
-    writes the differences to ``<out>.<rank>.json``."""
+    """Phase 32 (d), one rank: the ring against ``dist.all_reduce`` over
+    the ``model`` axis of a (data=1, model=2) mesh, and deepseek-7b's smoke
+    ``train_loss`` (float32, TF32 off) on it, its heads split over the two
+    ranks, against this rank's unsharded one; writes the differences to
+    ``<out>.<rank>.json``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(REPO / "src"))
@@ -3859,8 +3865,8 @@ def two_card_worker(rank: int, world: int, port: int, device: str,
         dev = torch.device(device, rank) if device == "cuda" else "cpu"
         g = torch.Generator(device=dev).manual_seed(rank)
         x = torch.randn(4099, generator=g, device=dev)
-        mesh = make_mesh((world,), ("data",), device=device)
-        ring = ring_allreduce(x, mesh, "data")
+        mesh = make_mesh((1, world), ("data", "model"), device=device)
+        ring = ring_allreduce(x, mesh, "model")
         want = x.clone()
         dist.all_reduce(want)
         with NoTF32():
@@ -3918,9 +3924,10 @@ def model_parallel_phase(device: str = "cuda", decode_arch: str = SERVE_ARCH,
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
+    print(f"model-parallel mesh: PyTorch {torch.__version__}", flush=True)
     init_group(device)
     try:
-        out = {"device": device}
+        out = {"device": device, "torch": torch.__version__}
         t0 = time.perf_counter()
         out["decode"] = mesh_decode(make_mesh((1, 1), ("data", "model"),
                                               device=device), device,
@@ -3942,6 +3949,60 @@ def model_parallel_phase(device: str = "cuda", decode_arch: str = SERVE_ARCH,
               f"machine shows {cards} CUDA device(s)", flush=True)
     print("model-parallel mesh " + json.dumps(out), flush=True)
     return out
+
+
+#: Phase 33: the dry-run's train cell of one smoke config of every family
+#: (both MoE configs: with and without latent attention), in two
+#: subprocesses run together, and their time limit
+DRYRUN_ARCHS = (("deepseek_7b", "deepseek_moe_16b", "hubert_xlarge",
+                 "pixtral_12b"),
+                ("deepseek_v2_lite_16b", "mamba2_1p3b", "zamba2_2p7b"))
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_phase() -> list:
+    """Phase 33: the dry-run's CLI (``python -m repro_torch.launch.dryrun
+    --smoke --shape train_4k --mesh single``) over the archs of
+    DRYRUN_ARCHS on this machine's PyTorch: a fake 256-rank group on the
+    CPU in subprocesses (the cards hidden; the dry-run refuses to start
+    beside another process group). Every record is printed and must be
+    ``ok``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    outs = [REPO / "build" / f"dryrun_smoke.{i}.json"
+            for i in range(len(DRYRUN_ARCHS))]
+    (REPO / "build").mkdir(exist_ok=True)
+    for out in outs:
+        out.unlink(missing_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--smoke",
+         "--shape", "train_4k", "--mesh", "single", "--out", str(out),
+         "--arch", *archs], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for out, archs in zip(outs, DRYRUN_ARCHS)]
+    recs, errs = [], []
+    try:
+        for proc, out in zip(procs, outs):
+            _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            errs.append(err[-2000:])
+            if out.exists():
+                recs += list(json.loads(out.read_text()).values())
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rec in recs:
+        print("dry-run " + json.dumps({k: rec.get(k) for k in (
+            "arch", "shape", "mesh", "status", "devices", "trace_s", "flops",
+            "collective_total", "error", "trace")}), flush=True)
+    got = {rec.get("arch"): rec.get("status") for rec in recs}
+    want = [a for archs in DRYRUN_ARCHS for a in archs]
+    if any(got.get(a) != "ok" for a in want):
+        fail(f"phase 33: dry-run train_4k cells {got}, expected every one "
+             f"of {want} ok; stderr tails: {errs}")
+    return recs
 
 
 def main() -> int:
@@ -4335,6 +4396,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 32 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- 33. the dry-run on this machine's PyTorch ----------------------------
+    t_phase = time.perf_counter()
+    dryrun_phase()
+    print(f"phase 33 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t_phase:.1f} s)")
 
     # -- summary lines: each kernel's launches on its main path and its

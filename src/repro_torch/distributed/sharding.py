@@ -16,6 +16,13 @@ The reference's two mechanisms, on PyTorch's DTensor:
   result; outside any context they return their input (single-device runs
   never see a mesh).
 
+The bodies that are local to one shard (attention per KV-head group, the
+SSD mixer per SSM head, the expert FFN per expert, the embedding per
+block of vocabulary rows) run as **regions** (:func:`local_region`): the
+placements are declared once at the border, and each rank runs the body
+on its plain local tensors through ``local_map``, so no op inside depends
+on DTensor's sharding rules, which differ between PyTorch releases.
+
 A spec (:data:`~repro_torch.distributed.mesh.Spec`) is a tuple with one
 entry per tensor dimension: a mesh axis, a tuple of axes, or ``None``.
 """
@@ -86,6 +93,15 @@ def current_mesh():
     return state[0] if state else None
 
 
+def is_sharded(x) -> bool:
+    """Whether ``x`` is a DTensor inside a sharding context (outside one,
+    a thread-local read)."""
+    if getattr(_ctx, "state", None) is None:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _resolve(mesh, rules: Dict[str, object],
              logical: Sequence[Optional[str]]) -> Spec:
     return _live(mesh, tuple(None if name is None else rules.get(name)
@@ -146,58 +162,147 @@ def shard(x, *logical: Optional[str]):
     return x.redistribute(mesh, placements)
 
 
-def split_dim(x, dim: int, *sizes: int):
-    """``x`` with dimension ``dim`` split into ``sizes`` (a reshape). Inside
-    a context, a DTensor that shards ``dim`` over more ranks than
-    ``sizes[0]`` divides by is first replicated on it: DTensor cannot split
-    such a dimension (GSPMD reshards there on its own), and the hook after
-    the split would replicate the smaller dimension anyway."""
-    dim = dim % x.ndim
-    if getattr(_ctx, "state", None) is not None:
-        x = _splittable(x, dim, sizes[0])
-    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+#: a region's argument or result spec: per dimension a logical name, None,
+#: or ``(name, width)`` for a dimension that packs blocks of ``width``
+#: values, one per index of ``name`` (heads merged with their width)
+RegionSpec = Tuple[object, ...]
+
+_region = threading.local()
 
 
-def _splittable(x, dim: int, lead: int):
-    """``x``, replicated on ``dim`` where it is a DTensor sharding ``dim``
-    over more ranks than ``lead`` divides by."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    if not isinstance(x, DTensor):
-        return x
-    ways = 1
-    for p, n in zip(x.placements, mesh_shape(x.device_mesh).values()):
-        ways *= n if isinstance(p, Shard) and p.dim == dim else 1
-    if lead % ways == 0:
-        return x
-    return x.redistribute(x.device_mesh, [
-        Replicate() if isinstance(p, Shard) and p.dim == dim else p
-        for p in x.placements])
+def _region_name(entry) -> Tuple[Optional[str], int]:
+    return entry if isinstance(entry, tuple) else (entry, 1)
 
 
-class _MergeLast(torch.autograd.Function):
-    """The last two dimensions merged; the gradient split back through
-    :func:`_splittable` (the backward may run on another thread, outside
-    the context's thread-local state)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.sizes = tuple(x.shape[-2:])
-        return x.reshape(*x.shape[:-2], -1)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = _splittable(grad, grad.ndim - 1, ctx.sizes[0])
-        return grad.reshape(*grad.shape[:-1], *ctx.sizes)
+def _mesh_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of a resolved entry (an axis, a tuple, None)."""
+    return () if entry is None else entry if isinstance(entry, tuple) \
+        else (entry,)
 
 
-def merge_last(x):
-    """``x`` with its last two dimensions (heads and their width) merged, a
-    reshape. Inside a context its gradient is split as :func:`split_dim`
-    splits: the plain reshape's backward would ask DTensor for the split
-    it cannot make."""
-    if getattr(_ctx, "state", None) is None:
-        return x.reshape(*x.shape[:-2], -1)
-    return _MergeLast.apply(x)
+def _region_axes(mesh, rules: Dict[str, object], specs, shapes,
+                 extra: Sequence[str]) -> Dict[str, object]:
+    """Each logical name of a region's arguments resolved once: its mesh
+    axes (the live ones of its rule) where they divide every dimension
+    that carries the name, else None. Names in ``extra`` (the region's
+    split axes that no argument carries) resolve by the rules alone."""
+    dims: Dict[str, list] = {}
+    for spec, shape in zip(specs, shapes):
+        for entry, dim in zip(spec, shape):
+            name, width = _region_name(entry)
+            if name is not None:
+                dims.setdefault(name, []).append(dim // width)
+    axes = {}
+    for name in (*dims, *extra):
+        entry = _live(mesh, (rules.get(name),))[0]
+        if entry is not None and any(
+                d % _axis_size(mesh, entry) for d in dims.get(name, ())):
+            entry = None
+        axes[name] = entry
+    return axes
+
+
+def region_block(name: str) -> Tuple[int, int]:
+    """Inside a region's body (:func:`local_region`): this rank's block
+    of the logical axis ``name`` and the number of blocks, ``(index,
+    count)`` over the mesh axes the name resolved to there; ``(0, 1)``
+    outside a region or where the name is not split."""
+    state = getattr(_region, "state", None)
+    if state is None:
+        return 0, 1
+    mesh = state[0]
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    shape = mesh_shape(mesh)
+    index, count = 0, 1
+    for a in _mesh_axes(state[1].get(name)):
+        index, count = index * shape[a] + coord[a], count * shape[a]
+    return index, count
+
+
+def local_region(fn, in_logical: Sequence[Optional[RegionSpec]],
+                 out_logical: Sequence[RegionSpec],
+                 partial: Sequence[str] = ()):
+    """``fn`` as a region local to each rank's shard: a callable that,
+    outside a :func:`sharding_context` (or with no DTensor argument),
+    calls ``fn`` itself. Inside one, each tensor argument ``i`` is placed
+    by its logical spec ``in_logical[i]`` (right-aligned; a plain tensor
+    enters replicated, as ``implicit_replication()`` reads it, then takes
+    its block; None places it replicated), ``fn`` runs on the local
+    tensors through ``local_map``
+    and its autograd is the backward, and each result is a DTensor placed
+    by ``out_logical`` (one full-length spec per result; ``fn`` returns a
+    single tensor where there is one spec).
+
+    A logical name resolves once for the whole region: to its rule's mesh
+    axes where they divide every dimension carrying the name, else
+    replicated (so q's heads replicate with KV heads that cannot shard).
+    ``partial`` names the logical axes the body splits its work over: the
+    results are ``Partial`` sums over their mesh axes, and a body reads
+    its block with :func:`region_block`. The gradient of an argument is a
+    partial sum on every split axis it is replicated on. Non-tensor
+    arguments pass through."""
+    n_out = len(out_logical)
+
+    def call(*args):
+        state = getattr(_ctx, "state", None)
+        if state is None:
+            return fn(*args)
+        from torch.distributed.tensor import DTensor
+        if not any(isinstance(a, DTensor) for a in args):
+            return fn(*args)
+        try:
+            from torch.distributed.tensor.experimental import local_map
+        except ImportError as e:       # no op-by-op fallback
+            raise ImportError(
+                "a sharded region needs torch.distributed.tensor."
+                "experimental.local_map; this PyTorch build lacks it") from e
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+        which = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        specs = [_right_align(in_logical[i] or (), args[i].ndim)
+                 for i in which]
+        axes = _region_axes(mesh, state[1], specs,
+                            [args[i].shape for i in which], partial)
+
+        def place(spec):
+            return named(mesh, tuple(axes[_region_name(e)[0]]
+                                     if _region_name(e)[0] else None
+                                     for e in spec)).placements
+
+        names = mesh.mesh_dim_names
+        ins = [place(s) for s in specs]
+        partial_axes = {a for name in partial for a in _mesh_axes(axes[name])}
+        outs = [[Partial() if a in partial_axes else p
+                 for a, p in zip(names, place(spec))] for spec in out_logical]
+        split = partial_axes | {a for pl in (*ins, *outs)
+                                for a, p in zip(names, pl)
+                                if isinstance(p, Shard)}
+        grads = [tuple(p if isinstance(p, Shard) else
+                       Partial() if a in split else Replicate()
+                       for a, p in zip(names, pl)) for pl in ins]
+        rep = [Replicate()] * mesh.ndim
+        tensors = [args[i] if isinstance(args[i], DTensor) else
+                   DTensor.from_local(args[i], mesh, rep, run_check=False)
+                   for i in which]
+
+        def body(*local):
+            full = list(args)
+            for i, t in zip(which, local):
+                full[i] = t
+            prev = getattr(_region, "state", None)
+            _region.state = (mesh, axes)
+            try:
+                return fn(*full)
+            finally:
+                _region.state = prev
+
+        # one list of placements per result (a tuple of them is many)
+        return local_map(body, out_placements=tuple(outs) if n_out > 1
+                         else outs[0], in_placements=tuple(ins),
+                         in_grad_placements=tuple(grads), device_mesh=mesh,
+                         redistribute_inputs=True)(*tensors)
+
+    return call
 
 
 # --------------------------------------------------------------------------

@@ -20,6 +20,13 @@ Usage:
     python -m repro_torch.launch.dryrun --arch deepseek_7b --shape train_4k \\
         --mesh single --out results/dryrun_torch.json
     python -m repro_torch.launch.dryrun --all       # every supported cell
+    python -m repro_torch.launch.dryrun --smoke --mesh multi \\
+        --shape train_4k --arch deepseek_moe_16b mamba2_1p3b
+
+``--smoke`` runs each arch's smoke config (``configs.smoke_config``) in
+place of its published one. A cell's ``trace_s`` includes DTensor's first
+pass over the ops that this process has not seen yet, so it depends on the
+cells run before it.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..configs import ARCH_IDS, get_config
+from ..configs import ARCH_IDS, get_config, smoke_config
 from ..distributed.elastic import rescale, set_parameters
 from ..distributed.mesh import batch_spec, named
 from ..distributed.sharding import (cache_shardings, sanitize_spec,
@@ -210,16 +217,19 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=ARCH_IDS + ["all"], default="all")
+    ap.add_argument("--arch", choices=ARCH_IDS + ["all"], nargs="+",
+                    default=["all"])
     ap.add_argument("--shape", choices=list(SHAPES) + ["all"], default="all")
     ap.add_argument("--mesh", choices=["single", "multi", "both"],
                     default="both")
     ap.add_argument("--out", default="results/dryrun_torch.json")
     ap.add_argument("--all", action="store_true",
                     help="every cell (the default of --arch and --shape)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="each arch's smoke config, not its published one")
     args = ap.parse_args()
 
-    archs = ARCH_IDS if args.arch == "all" else [args.arch]
+    archs = ARCH_IDS if "all" in args.arch else args.arch
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
@@ -233,13 +243,16 @@ def main() -> None:
     for arch in archs:
         for shape in shapes:
             for multi in meshes:
-                key = f"{arch}/{shape}/{'multi' if multi else 'single'}"
+                key = (f"{arch}/{shape}/{'multi' if multi else 'single'}"
+                       + ("/smoke" if args.smoke else ""))
                 if results.get(key, {}).get("status") == "ok":
                     print(f"[skip cached] {key}")
                     continue
                 print(f"[lower] {key}", flush=True)
                 try:
-                    rec = lower_cell(arch, shape, multi_pod=multi)
+                    rec = lower_cell(arch, shape, multi_pod=multi,
+                                     cfg_override=smoke_config(arch)
+                                     if args.smoke else None)
                 except Exception as e:  # record, keep going
                     rec = {"arch": arch, "shape": shape,
                            "mesh": "multi" if multi else "single",

@@ -12,12 +12,13 @@ model's arena, updated in place where the reference returns a new array.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from ..distributed.sharding import merge_last, shard, split_dim
+from ..distributed.sharding import local_region
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import Dense, apply_rope
@@ -83,7 +84,7 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    qg = split_dim(q, 2, hkv, g)
+    qg = q.reshape(b, sq, hkv, g, hd)
     # 1/sqrt(hd) rounded to float32, as the reference (and K3) computes it
     scale = (1.0 / torch.sqrt(torch.tensor(float(hd)))).item()
     scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
@@ -133,6 +134,44 @@ def _sdpa(cfg: ModelConfig, q, k, v, *, causal, q_positions=None,
                           kv_valid_len=kv_valid_len)
 
 
+def _qkv_heads(q, k, v, positions, theta, hd):
+    q = apply_rope(q.unflatten(-1, (-1, hd)), positions, theta)
+    k = apply_rope(k.unflatten(-1, (-1, hd)), positions, theta)
+    return q, k, v.unflatten(-1, (-1, hd))
+
+
+def qkv_heads(q, k, v, positions: torch.Tensor, theta: float, hd: int):
+    """The projections ``q`` (B, S, Hq hd), ``k`` and ``v`` (B, S, Hkv hd)
+    split into heads of ``hd``, RoPE on q and k: a region (one logical
+    ``heads`` axis for all three, so q's heads replicate where the KV
+    heads cannot shard)."""
+    packed = ("batch", None, ("heads", hd))
+    heads = ("batch", None, "heads", None)
+    return local_region(_qkv_heads, (packed, packed, packed,
+                                     ("batch", None), None, None),
+                        (heads, heads, heads))(q, k, v, positions, theta, hd)
+
+
+def _attend(sdpa, q, k, v, causal, q_positions, kv_valid_len):
+    return sdpa(q, k, v, causal=causal, q_positions=q_positions,
+                kv_valid_len=kv_valid_len).flatten(-2)
+
+
+def attend(sdpa, q, k, v, *, causal: bool,
+           q_positions: Optional[torch.Tensor] = None,
+           kv_valid_len: Optional[Index] = None) -> torch.Tensor:
+    """``sdpa(q, k, v, ...)`` with the heads merged, (B, Sq, Hq hd): a
+    region, each rank's query heads against their own KV heads (q and the
+    KV heads shard together or both replicate); the masks' positions and
+    lengths enter by batch."""
+    heads = ("batch", None, "heads", None)
+    return local_region(
+        _attend, (None, heads, heads, heads, None, ("batch", None),
+                  ("batch",)),
+        (("batch", None, ("heads", q.shape[-1])),))(
+            sdpa, q, k, v, causal, q_positions, kv_valid_len)
+
+
 def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *,
                     cache: Optional[LayerCache] = None,
@@ -144,26 +183,19 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``cache_index + s`` positions; None attends within ``x`` only.
     """
     s = x.shape[1]
-    hd = cfg.resolved_head_dim
-    q = split_dim(p.wq(x), -1, cfg.n_heads, hd)
-    k = split_dim(p.wk(x), -1, cfg.n_kv_heads, hd)
-    v = split_dim(p.wv(x), -1, cfg.n_kv_heads, hd)
-    q = shard(q, "batch", None, "heads", None)
-    k = shard(k, "batch", None, "kv_heads", None)
-    v = shard(v, "batch", None, "kv_heads", None)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-
+    q, k, v = qkv_heads(p.wq(x), p.wk(x), p.wv(x), positions,
+                        cfg.rope_theta, cfg.resolved_head_dim)
+    sdpa = functools.partial(_sdpa, cfg)
     if cache is not None:
         idx = cache_index if cache_index is not None else 0
         ck, cv = cache
         cache_update(ck, k, idx)
         cache_update(cv, v, idx)
-        out = _sdpa(cfg, q, ck, cv, causal=cfg.causal, q_positions=positions,
-                    kv_valid_len=idx + s)
+        out = attend(sdpa, q, ck, cv, causal=cfg.causal,
+                     q_positions=positions, kv_valid_len=idx + s)
     else:
-        out = _sdpa(cfg, q, k, v, causal=cfg.causal)
-    return p.wo(merge_last(out))
+        out = attend(sdpa, q, k, v, causal=cfg.causal)
+    return p.wo(out)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -20,7 +20,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import (is_sharded, local_region, region_block,
+                                    shard)
 
 
 def _normal(shape, scale: float, *, generator: torch.Generator,
@@ -31,9 +32,33 @@ def _normal(shape, scale: float, *, generator: torch.Generator,
 
 
 # -- dense -------------------------------------------------------------------
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = x @ w
+    if x.dim() > 2 and (is_sharded(x) or is_sharded(w)):
+        # matmul's fold of the leading dimensions with views (its own, and
+        # the reshape of a strided gradient, end in aten._unsafe_view,
+        # whose sharding rules differ across PyTorch versions). Plain
+        # tensors keep x @ w: the fold's three more calls cost 4.6 us of
+        # host time a projection and 1.1% of a qwen2-7b decode step on an
+        # H100 80GB HBM3 at 700 W (scripts/dense_fold_ab.py)
+        y = (x.contiguous().view(-1, x.shape[-1]) @ w).view(
+            *x.shape[:-1], w.shape[-1])
+        if y.requires_grad:
+            y = _ContiguousGrad.apply(y)
+    else:
+        y = x @ w
     if b is not None:
         y = y + b
     return y
@@ -177,17 +202,36 @@ class MLP(nn.Module):
 
 
 # -- embeddings ---------------------------------------------------------------
-def embed(table: torch.Tensor, tokens: torch.Tensor, *,
-          scale_by_dim: bool = False) -> torch.Tensor:
-    h = table[tokens]
+def _lookup(table: torch.Tensor, tokens: torch.Tensor,
+            scale_by_dim: bool) -> torch.Tensor:
+    block, blocks = region_block("vocab")
+    if blocks == 1:
+        h = table[tokens]
+    else:  # this rank's block of rows: its tokens' rows, zeros for the rest
+        rows = table.shape[0]
+        local = tokens - block * rows
+        inside = (local >= 0) & (local < rows)
+        h = table[local.clamp(0, rows - 1)] * inside[..., None].to(
+            table.dtype)
     if scale_by_dim:  # gemma multiplies embeddings by sqrt(d_model)
         h = h * torch.sqrt(torch.tensor(h.shape[-1], dtype=h.dtype,
                                         device=h.device))
     return h
 
 
+def embed(table: torch.Tensor, tokens: torch.Tensor, *,
+          scale_by_dim: bool = False) -> torch.Tensor:
+    """``table[tokens]``; in a sharding context a vocab-parallel lookup
+    (a region): each rank looks up the tokens in its block of rows, and the
+    result is a partial sum over the vocab's axes (a vocab that does not
+    divide them is replicated, and the lookup plain)."""
+    return local_region(_lookup, (("vocab", None), ("batch", None), None),
+                        (("batch", None, None),), partial=("vocab",))(
+                            table, tokens, scale_by_dim)
+
+
 def unembed(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    return h @ table.T
+    return dense(h, table.T)
 
 
 # -- losses -------------------------------------------------------------------

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import merge_last, shard, split_dim
+from ..distributed.sharding import local_region
 from ..kernels import ops as kops
 from ..kernels.ref import ssd_scan_ref
 from .attention import Index
@@ -146,6 +146,46 @@ def _starts_sequence(cache_index: Optional[Index]) -> bool:
     return int(cache_index) == 0
 
 
+def _ssd_heads(cfg: ModelConfig, xr, bc, dt, dt_bias, a_log, d_skip,
+               ssd: Optional[torch.Tensor], fresh: bool) -> torch.Tensor:
+    """From the projections after their convs to the skip-added output,
+    heads merged: the chunked scan, or with a cache the one-token
+    recurrence (``ssd`` updated in place; zeroed first where ``fresh``)."""
+    s = cfg.ssm
+    seq = xr.shape[1]
+    dt = F.softplus(dt.float() + dt_bias)
+    half = bc.shape[-1] // 2
+    xs = xr.unflatten(-1, (-1, s.head_dim))
+    bs = bc[..., :half].unflatten(-1, (s.n_groups, s.d_state))
+    cs = bc[..., half:].unflatten(-1, (s.n_groups, s.d_state))
+
+    if ssd is not None and seq == 1:
+        if fresh:
+            ssd.zero_()
+        y, _ = ssd_decode_step(ssd, xs[:, 0], dt[:, 0], a_log, bs[:, 0],
+                               cs[:, 0])
+        y = y[:, None]
+    else:
+        # Pad to a chunk multiple; dt = 0 on pads makes them exact no-ops
+        # (decay exp(0) = 1, zero input contribution).
+        pad = (-seq) % s.chunk
+        args = [_pad_seq(t, pad) for t in (xs, dt, bs, cs)]
+        if cfg.attention_impl == "kernel":
+            y, final = kops.ssd_scan(args[0], args[1], a_log, args[2],
+                                     args[3], chunk=s.chunk)
+        elif cfg.attention_impl == "reference":
+            y, final = ssd_scan_ref(args[0], args[1], a_log, args[2],
+                                    args[3], s.chunk)
+        else:
+            raise ValueError(f"attention_impl must be 'kernel' or "
+                             f"'reference', got {cfg.attention_impl!r}")
+        y = y[:, :seq]
+        if ssd is not None:
+            ssd.copy_(final)
+    y = y + xs * d_skip[:, None].to(y.dtype)
+    return y.flatten(-2)
+
+
 def mamba2_apply(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *,
                  cache: Optional[MambaCache] = None,
                  cache_index: Optional[Index] = None) -> torch.Tensor:
@@ -155,8 +195,12 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *,
     ``cache_index`` of 0 (a prefill) the sequence starts from zero conv and
     SSD state, whatever the cache held; a one-token call otherwise
     continues from the cache (decode). A multi-token call at a cursor > 0
-    raises."""
-    s, _, n_heads, gn = _dims(cfg)
+    raises.
+
+    The SSD body is a region over the SSM heads (``bc`` replicated: one
+    group of B and C serves every head; with more groups the heads do not
+    split)."""
+    s = cfg.ssm
     seq = x.shape[1]
     fresh = _starts_sequence(cache_index)
     if cache is not None and seq > 1 and not fresh:
@@ -168,7 +212,7 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *,
     z = p.in_z(x)
     xr = p.in_x(x)
     bc = p.in_bc(x)
-    dt = F.softplus(p.in_dt(x).float() + p.dt_bias)
+    dt = p.in_dt(x)
 
     keep = cache is not None and not fresh
     xr, new_cx = _causal_conv(xr, p.conv_x_w, p.conv_x_b,
@@ -176,42 +220,16 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *,
     bc, new_cbc = _causal_conv(bc, p.conv_bc_w, p.conv_bc_b,
                                cache.conv_bc if keep else None)
 
-    half = gn // 2
-    xs = shard(split_dim(xr, -1, n_heads, s.head_dim),
-               "batch", None, "ssm_heads", None)
-    bs = split_dim(bc[..., :half], -1, s.n_groups, s.d_state)
-    cs = split_dim(bc[..., half:], -1, s.n_groups, s.d_state)
-
-    if cache is not None and seq == 1:
-        if not keep:
-            cache.ssd.zero_()
-        y, _ = ssd_decode_step(cache.ssd, xs[:, 0], dt[:, 0], p.a_log,
-                               bs[:, 0], cs[:, 0])
-        y = y[:, None]
-    else:
-        # Pad to a chunk multiple; dt = 0 on pads makes them exact no-ops
-        # (decay exp(0) = 1, zero input contribution).
-        pad = (-seq) % s.chunk
-        args = [_pad_seq(t, pad) for t in (xs, dt, bs, cs)]
-        if cfg.attention_impl == "kernel":
-            y, final = kops.ssd_scan(args[0], args[1], p.a_log, args[2],
-                                     args[3], chunk=s.chunk)
-        elif cfg.attention_impl == "reference":
-            y, final = ssd_scan_ref(args[0], args[1], p.a_log, args[2],
-                                    args[3], s.chunk)
-        else:
-            raise ValueError(f"attention_impl must be 'kernel' or "
-                             f"'reference', got {cfg.attention_impl!r}")
-        y = y[:, :seq]
-        if cache is not None:
-            cache.ssd.copy_(final)
+    heads = "ssm_heads" if s.n_groups == 1 else None
+    per_head = ("batch", None, (heads, s.head_dim))
+    y = local_region(_ssd_heads, (
+        None, per_head, ("batch", None, None), ("batch", None, heads),
+        (heads,), (heads,), (heads,), ("batch", heads, None, None), None),
+        (per_head,))(cfg, xr, bc, dt, p.dt_bias, p.a_log, p.d_skip,
+                     None if cache is None else cache.ssd, fresh)
     if cache is not None:
         cache.conv_x.copy_(new_cx)
         cache.conv_bc.copy_(new_cbc)
-
-    y = y + xs * p.d_skip[:, None].to(y.dtype)
-    y = shard(y, "batch", None, "ssm_heads", None)
-    y = merge_last(y)
     y = rmsnorm(y * silu(z), p.norm.scale)
     return p.out_proj(y)
 

@@ -19,10 +19,10 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..distributed.sharding import merge_last, split_dim
+from ..distributed.sharding import local_region
 from .attention import NEG_INF, Index, attention_mask, cache_update
 from .config import ModelConfig
-from .layers import Dense, Norm, apply_rope
+from .layers import Dense, Norm, apply_rope, dense
 
 #: a layer's cache: (c_kv (B, S_max, rank), k_rope (B, S_max, rope_dim))
 MLACache = Tuple[torch.Tensor, torch.Tensor]
@@ -64,13 +64,22 @@ def _scale(cfg: ModelConfig) -> float:
         float(m.nope_head_dim + m.rope_head_dim)))).item()
 
 
+def _split_queries(q, positions, theta, nope, width):
+    q = q.unflatten(-1, (-1, width))
+    return q[..., :nope], apply_rope(q[..., nope:], positions, theta)
+
+
 def _queries(p: MLA, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor):
+    """(q_nope, q_rope), each (B, S, H, ...): a region over the heads."""
     m = cfg.mla
     q = p.wuq(p.q_norm(p.wdq(x))) if m.q_lora_rank else p.wq(x)
-    q = split_dim(q, -1, cfg.n_heads, m.nope_head_dim + m.rope_head_dim)
-    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+    width = m.nope_head_dim + m.rope_head_dim
+    heads = ("batch", None, "heads", None)
+    return local_region(_split_queries,
+                        (("batch", None, ("heads", width)), ("batch", None)),
+                        (heads, heads))(q, positions, cfg.rope_theta,
+                                        m.nope_head_dim, width)
 
 
 def _latents(p: MLA, cfg: ModelConfig, x: torch.Tensor,
@@ -91,16 +100,12 @@ def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor,
     return torch.softmax(scores, dim=-1).to(dtype)
 
 
-def _naive(p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope, *,
-           q_positions: Optional[torch.Tensor] = None,
-           kv_valid_len: Optional[Index] = None) -> torch.Tensor:
-    """Per-head keys and values materialised from the latents (training
-    and prefill): (B, Sq, H, v_head_dim)."""
+def _naive_heads(cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope, wuk, wuv,
+                 q_positions, kv_valid_len) -> torch.Tensor:
     m = cfg.mla
     b, skv = c_kv.shape[0], c_kv.shape[1]
-    h = cfg.n_heads
-    k_nope = split_dim(p.wuk(c_kv), -1, h, m.nope_head_dim)
-    v = split_dim(p.wuv(c_kv), -1, h, m.v_head_dim)
+    k_nope = dense(c_kv, wuk).unflatten(-1, (-1, m.nope_head_dim))
+    v = dense(c_kv, wuv).unflatten(-1, (-1, m.v_head_dim))
     scores = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
               + torch.einsum("bshd,btd->bhst", q_rope.float(),
                              k_rope.float())) * _scale(cfg)
@@ -108,18 +113,16 @@ def _naive(p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope, *,
                           q_positions=q_positions, kv_valid_len=kv_valid_len,
                           device=c_kv.device)
     w = _masked_softmax(scores, mask, v.dtype)
-    return torch.einsum("bhst,bthd->bshd", w.float(), v.float()).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", w.float(),
+                        v.float()).to(v.dtype).flatten(-2)
 
 
-def _absorbed_decode(p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv,
-                     k_rope, valid_len: Index) -> torch.Tensor:
-    """Attention in latent space for one-token queries, reading only the
-    compressed cache (``valid_len``: scalar or per-row (B,) lengths):
-    (B, 1, H, v_head_dim)."""
+def _absorbed_heads(cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope, wuk,
+                    wuv, valid_len) -> torch.Tensor:
     m = cfg.mla
-    b, _, h, _ = q_nope.shape
+    b = q_nope.shape[0]
     dtype = c_kv.dtype
-    wuk = split_dim(p.wuk.w, 1, h, m.nope_head_dim)
+    wuk = wuk.unflatten(1, (-1, m.nope_head_dim))
     # fold W_uk into the query: q_c = q_nope W_uk^T, in latent space
     q_c = torch.einsum("bshd,chd->bshc", q_nope.float(),
                        wuk.float()).to(q_nope.dtype)           # (B,1,H,rank)
@@ -131,9 +134,43 @@ def _absorbed_decode(p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv,
     w = _masked_softmax(scores, mask, dtype)
     ctx = torch.einsum("bhst,btc->bshc", w.float(),
                        c_kv.float()).to(dtype)                 # latent context
-    wuv = split_dim(p.wuv.w, 1, h, m.v_head_dim)
+    wuv = wuv.unflatten(1, (-1, m.v_head_dim))
     return torch.einsum("bshc,chd->bshd", ctx.float(),
-                        wuv.float()).to(dtype)
+                        wuv.float()).to(dtype).flatten(-2)
+
+
+def _latent_attention(body, p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv,
+                      k_rope, *lengths) -> torch.Tensor:
+    """``body`` as a region over the heads: each rank's query heads with
+    their columns of W_uk and W_uv against the whole latents."""
+    m = cfg.mla
+    heads = ("batch", None, "heads", None)
+    latent = ("batch", None, None)
+    masks = (("batch", None), ("batch",))[-len(lengths):]
+    return local_region(
+        body, (None, heads, heads, latent, latent,
+               (None, ("heads", m.nope_head_dim)),
+               (None, ("heads", m.v_head_dim)), *masks),
+        (("batch", None, ("heads", m.v_head_dim)),))(
+            cfg, q_nope, q_rope, c_kv, k_rope, p.wuk.w, p.wuv.w, *lengths)
+
+
+def _naive(p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope, *,
+           q_positions: Optional[torch.Tensor] = None,
+           kv_valid_len: Optional[Index] = None) -> torch.Tensor:
+    """Per-head keys and values materialised from the latents (training
+    and prefill): (B, Sq, H v_head_dim), the heads merged."""
+    return _latent_attention(_naive_heads, p, cfg, q_nope, q_rope, c_kv,
+                             k_rope, q_positions, kv_valid_len)
+
+
+def _absorbed_decode(p: MLA, cfg: ModelConfig, q_nope, q_rope, c_kv,
+                     k_rope, valid_len: Index) -> torch.Tensor:
+    """Attention in latent space for one-token queries, reading only the
+    compressed cache (``valid_len``: scalar or per-row (B,) lengths):
+    (B, 1, H v_head_dim), the heads merged."""
+    return _latent_attention(_absorbed_heads, p, cfg, q_nope, q_rope, c_kv,
+                             k_rope, valid_len)
 
 
 def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor,
@@ -161,7 +198,7 @@ def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor,
                          q_positions=positions, kv_valid_len=idx + s)
     else:
         out = _naive(p, cfg, q_nope, q_rope, c_kv, k_rope)
-    return p.wo(merge_last(out))
+    return p.wo(out)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,

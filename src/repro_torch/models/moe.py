@@ -35,11 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import local_region, region_block, shard
 from ..kernels import ops as kops
 from ..kernels.grouped_matmul import BLOCK_MS, sort_assignments
 from .config import ModelConfig
-from .layers import MLP, Dense, _normal, gelu_tanh, silu
+from .layers import MLP, Dense, _normal, dense, gelu_tanh, silu
 
 
 class ExpertWeight(nn.Module):
@@ -106,31 +106,49 @@ def _activation(kind: str):
     return silu if kind == "swiglu" else gelu_tanh
 
 
-def _expert_ffn(ex: Experts, h: torch.Tensor, kind: str) -> torch.Tensor:
+def _expert_ffn(gate, up, down, h: torch.Tensor, kind: str) -> torch.Tensor:
     """h: (E, C, d) -> (E, C, d) through the stacked expert weights."""
     def proj(x, w):
-        return torch.einsum("ecd,edf->ecf", x, w.w)
+        return torch.einsum("ecd,edf->ecf", x, w)
     if kind in ("swiglu", "geglu"):
-        inner = _activation(kind)(proj(h, ex.gate)) * proj(h, ex.up)
+        inner = _activation(kind)(proj(h, gate)) * proj(h, up)
     else:
-        inner = gelu_tanh(proj(h, ex.up))
-    return proj(inner, ex.down)
+        inner = gelu_tanh(proj(h, up))
+    return proj(inner, down)
 
 
-def _routed_buffer(ex: Experts, kind: str, xt, flat_e, flat_pos, keep,
-                   token_idx, flat_w, capacity: int) -> torch.Tensor:
-    """The reference's route: scatter into (E, C, d), the batched expert
-    FFN, gather each assignment's weighted row back. (k n, d)."""
-    safe_pos = torch.where(keep, flat_pos, capacity - 1)
-    buf = xt.new_zeros((ex.up.w.shape[0], capacity, xt.shape[1]))
-    # an add, not a write: a dropped assignment adds zeros at capacity - 1
+def _routed_buffer(kind: str, top_k: int, capacity: int, x, flat_e,
+                   flat_pos, keep, flat_w, gate, up, down) -> torch.Tensor:
+    """The reference's route: scatter the tokens of x (..., d) into (E, C,
+    d), the batched expert FFN, gather each assignment's weighted row back
+    and add a token's k rows in float32: x's shape, float32.
+
+    In a region each rank holds a block of the experts and takes a block
+    of each one's capacity rows (:func:`region_block`): it fills and runs
+    only those rows, and an assignment outside them adds a zero row, so
+    the ranks' results are partial sums."""
+    xt = x.reshape(-1, x.shape[-1])
+    n_exp, n = up.shape[0], xt.shape[0]
+    e_blk, e_count = region_block("experts")
+    c_blk, c_count = region_block("batch")
+    rows = -(-capacity // c_count)
+    if e_count * c_count > 1:
+        e0, c0 = e_blk * n_exp, c_blk * rows
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + n_exp) \
+            & (flat_pos >= c0) & (flat_pos < c0 + rows)
+        flat_e = torch.where(keep, flat_e - e0, 0)
+        flat_pos = flat_pos - c0
+        flat_w = flat_w * keep
+    token_idx = torch.arange(n, device=xt.device).repeat(top_k)
+    safe_pos = torch.where(keep, flat_pos, rows - 1)
+    buf = xt.new_zeros((n_exp, rows, xt.shape[1]))
+    # an add, not a write: a dropped assignment adds zeros at rows - 1
     buf.index_put_((flat_e, safe_pos),
                    xt[token_idx] * keep[:, None].to(xt.dtype),
                    accumulate=True)
-    # sharding E on "model" is expert parallelism (an all-to-all here)
-    buf = shard(buf, "experts", "expert_cap", None)
-    h = shard(_expert_ffn(ex, buf, kind), "experts", "expert_cap", None)
-    return h[flat_e, safe_pos] * flat_w[:, None].to(xt.dtype)
+    h = _expert_ffn(gate, up, down, buf, kind)
+    y = h[flat_e, safe_pos] * flat_w[:, None].to(xt.dtype)
+    return y.reshape(top_k, *x.shape).sum(0, dtype=torch.float32)
 
 
 def _routed_sorted(ex: Experts, kind: str, xt, flat_e, keep, token_idx,
@@ -156,6 +174,31 @@ def _routed_sorted(ex: Experts, kind: str, xt, flat_e, keep, token_idx,
         * flat_w[:, None].to(xt.dtype)
 
 
+def _route(e, logits: torch.Tensor, capacity: int, with_aux: bool):
+    """Routing in float32 from the router's logits (..., E) of N tokens:
+    each
+    assignment's expert, position in its expert's buffer (k-major, so that
+    earlier top-k slots win capacity), whether it is kept and its weight,
+    each (k N,); ``with_aux``, also the Switch-style load-balancing loss
+    and the router z-loss."""
+    logits = logits.reshape(-1, logits.shape[-1])
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = top_k(probs, e.top_k)                     # (N, k)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = top_i.T.reshape(-1)                             # (k N,)
+    onehot = F.one_hot(flat_e, e.n_routed)
+    flat_pos = (torch.cumsum(onehot, 0) * onehot - 1).amax(-1)
+    keep = flat_pos < capacity
+    flat_w = top_w.T.reshape(-1) * keep
+    if not with_aux:
+        return flat_e, flat_pos, keep, flat_w
+    me = probs.mean(0)                                       # (E,)
+    ce = F.one_hot(top_i, e.n_routed).float().mean((0, 1)) * e.top_k
+    return (flat_e, flat_pos, keep, flat_w,
+            e.aux_loss_coef * e.n_routed * (me * ce).sum(),
+            e.router_z_loss * torch.logsumexp(logits, -1).square().mean())
+
+
 def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
               drop_free: bool = False, with_aux: bool = True
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -169,49 +212,45 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     place: only training reads them, and serving would pay their launches
     in every layer and step."""
     e = cfg.moe
-    orig_shape = x.shape
-    d = orig_shape[-1]
-    xt = x.reshape(-1, d)
-    n = xt.shape[0]
-
-    logits = (xt @ p.router.w).float()                       # (N, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_i = top_k(probs, e.top_k)                     # (N, k)
-    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
-
+    d = x.shape[-1]
+    n = x.numel() // d
+    # the tokens keep their leading dimensions: a DTensor's reshape, and
+    # the gradients' on the way back, stays inside the regions
+    logits = dense(x, p.router.w).float()                    # (..., E)
     capacity = n if drop_free else max(
         math.ceil(n * e.top_k * e.capacity_factor / e.n_routed), e.top_k)
     capacity = min(capacity, n)
-
-    # each assignment's position in its expert's buffer, k-major, so that
-    # earlier top-k slots win capacity
-    flat_e = top_i.T.reshape(-1)                             # (k N,)
-    onehot = F.one_hot(flat_e, e.n_routed)
-    flat_pos = (torch.cumsum(onehot, 0) * onehot - 1).amax(-1)
-    keep = flat_pos < capacity
-    flat_w = top_w.T.reshape(-1) * keep
-    token_idx = torch.arange(n, device=x.device).repeat(e.top_k)
+    # routing sees every token (the capacity counts them in order)
+    flat = (None,)
+    routed = local_region(_route, (None, (None,) * logits.ndim, None, None),
+                          (flat,) * 4 + (((), ()) if with_aux else ()))(
+                              e, logits, capacity, with_aux)
+    flat_e, flat_pos, keep, flat_w = routed[:4]
 
     if cfg.attention_impl == "kernel":
-        y = _routed_sorted(p.experts, cfg.mlp_kind, xt, flat_e, keep,
-                           token_idx, flat_w)
+        token_idx = torch.arange(n, device=x.device).repeat(e.top_k)
+        y = _routed_sorted(p.experts, cfg.mlp_kind, x.reshape(-1, d), flat_e,
+                           keep, token_idx, flat_w)
+        y = y.reshape(e.top_k, *x.shape).sum(0, dtype=torch.float32)
     elif cfg.attention_impl == "reference":
-        y = _routed_buffer(p.experts, cfg.mlp_kind, xt, flat_e, flat_pos,
-                           keep, token_idx, flat_w, capacity)
+        ex = p.experts
+        stacked = ("experts", None, None)
+        tokens = (None,) * x.ndim
+        # sharding E on "model" is expert parallelism: each rank runs its
+        # experts over all tokens (gathered on the batch axes), the
+        # capacity rows split over those axes
+        y = local_region(_routed_buffer, (None,) * 3 + (tokens,) + (flat,) * 4
+                         + (stacked,) * 3, (tokens,),
+                         partial=("experts", "batch"))(
+            cfg.mlp_kind, e.top_k, capacity, x, flat_e, flat_pos, keep,
+            flat_w, None if ex.gate is None else ex.gate.w, ex.up.w,
+            ex.down.w)
     else:
         raise ValueError(f"attention_impl must be 'kernel' or 'reference', "
                          f"got {cfg.attention_impl!r}")
-    y = y.reshape(e.top_k, n, d).sum(0, dtype=torch.float32).to(x.dtype)
+    y = shard(y, "batch", None, "embed").to(x.dtype)
     if p.shared is not None:
-        y = y + p.shared(xt)
+        y = y + p.shared(x)
     if not with_aux:
-        return y.reshape(orig_shape), None
-
-    # Switch-style load balancing and the router z-loss
-    me = probs.mean(0)                                       # (E,)
-    ce = F.one_hot(top_i, e.n_routed).float().mean((0, 1)) * e.top_k
-    aux = {"moe_aux_loss": e.aux_loss_coef * e.n_routed * (me * ce).sum(),
-           "moe_z_loss": e.router_z_loss
-           * torch.logsumexp(logits, -1).square().mean()}
-    return y.reshape(orig_shape), aux
-
+        return y, None
+    return y, {"moe_aux_loss": routed[4], "moe_z_loss": routed[5]}

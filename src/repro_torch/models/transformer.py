@@ -42,11 +42,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.executor import resolve_device
-from ..distributed.sharding import merge_last, shard, split_dim
-from .attention import (Attention, Index, attention_apply, cache_update,
-                        init_kv_cache, sdpa_reference)
+from ..distributed.sharding import local_region, shard
+from .attention import (Attention, Index, attend, attention_apply,
+                        cache_update, init_kv_cache, qkv_heads,
+                        sdpa_reference)
 from .config import ModelConfig
-from .layers import (Dense, Embedding, MLP, Norm, apply_rope, dense, embed,
+from .layers import (Dense, Embedding, MLP, Norm, dense, embed,
                      gelu_tanh, softmax_cross_entropy, unembed)
 from .mamba2 import Mamba2, MambaCache, init_mamba_cache, mamba2_apply
 from .mla import MLA, init_mla_cache, mla_apply
@@ -171,21 +172,18 @@ def shared_block_apply(p: SharedBlock, cfg: ModelConfig, x: torch.Tensor,
     s = x.shape[1]
     z = torch.cat([x, emb0], dim=-1)
     h = p.norm1(z)
-    q = apply_rope(split_dim(p.wq(h), -1, nh, hd), positions,
-                   cfg.rope_theta)
-    k = apply_rope(split_dim(p.wk(h), -1, nh, hd), positions,
-                   cfg.rope_theta)
-    v = split_dim(p.wv(h), -1, nh, hd)
+    q, k, v = qkv_heads(p.wq(h), p.wk(h), p.wv(h), positions,
+                        cfg.rope_theta, hd)
     if cache is not None:
         idx = cache_index if cache_index is not None else 0
         ck, cv = cache
         cache_update(ck, k, idx)
         cache_update(cv, v, idx)
-        out = sdpa_reference(q, ck, cv, causal=True, q_positions=positions,
-                             kv_valid_len=idx + s)
+        out = attend(sdpa_reference, q, ck, cv, causal=True,
+                     q_positions=positions, kv_valid_len=idx + s)
     else:
-        out = sdpa_reference(q, k, v, causal=True)
-    z = z + p.wo(merge_last(out))
+        out = attend(sdpa_reference, q, k, v, causal=True)
+    z = z + p.wo(out)
     z = z + p.ffn(p.norm2(z))
     return x + p.proj(z)
 
@@ -218,21 +216,28 @@ class VisionFrontend(nn.Module):
         self.proj2 = Dense(cfg.d_model, cfg.d_model, **kw)
 
 
-def _conv_pos_embed(p: AudioFrontend, h: torch.Tensor) -> torch.Tensor:
-    """``h + gelu(conv(h) + b)``: the bidirectional depthwise convolution
-    over the sequence as the reference writes it, the sum of 31 shifted
-    products taken in tap order in h's dtype (each product and each
-    addition rounds there, so a bfloat16 result is the reference's), and
-    the reference's tanh GELU (:func:`gelu_tanh`). ``F.conv1d`` would sum
-    in another order."""
-    w = p.pos_conv_w
+def _pos_conv(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor
+              ) -> torch.Tensor:
     k, s = w.shape[0], h.shape[1]
     pad = k // 2
     padded = F.pad(h, (0, 0, pad, k - 1 - pad))
     out = padded[:, :s] * w[0]
     for i in range(1, k):
         out = out + padded[:, i:i + s] * w[i]
-    return h + gelu_tanh(out + p.pos_conv_b)
+    return h + gelu_tanh(out + b)
+
+
+def _conv_pos_embed(p: AudioFrontend, h: torch.Tensor) -> torch.Tensor:
+    """``h + gelu(conv(h) + b)``: the bidirectional depthwise convolution
+    over the sequence as the reference writes it, the sum of 31 shifted
+    products taken in tap order in h's dtype (each product and each
+    addition rounds there, so a bfloat16 result is the reference's), and
+    the reference's tanh GELU (:func:`gelu_tanh`). ``F.conv1d`` would sum
+    in another order. A region: each rank convolves its sequences whole."""
+    return local_region(_pos_conv, ((None, None), (None,),
+                                    ("batch", None, None)),
+                        (("batch", None, None),))(
+                            p.pos_conv_w, p.pos_conv_b, h)
 
 
 class Transformer(nn.Module):

@@ -14,6 +14,13 @@ of four processes. Rank ``r`` reads the reference's inputs from the
   the same on an unsharded copy of the model;
 * the same loss (forward only) for one smoke config of every other family,
   sharded on that mesh and unsharded;
+* the loss's gradients on that mesh and unsharded (:data:`GRAD_CASES`):
+  the embedding table and ``wq`` of deepseek-7b; an expert weight, the
+  router and the first layer's ``wq`` of deepseek-moe-16b (whose gradient
+  comes back through the MoE layer's partial sums); MLA's ``wuk`` and
+  ``wuv`` and the router of deepseek-v2-lite; mamba2's ``in_x``; ``wq``
+  and ``wk`` of deepseek-7b with one KV head (which cannot shard on
+  ``model`` while its 4 query heads can);
 * ``ElasticTrainer`` on the (pod=2, data=2) mesh: 3 steps with a
   checkpoint after 2, a failure, the restore onto ``surviving_mesh`` and 2
   more steps;
@@ -34,6 +41,21 @@ BATCH, SEQ = 4, 16
 #: one smoke config of each other family (moe twice: MLA and not)
 FAMILIES = ("deepseek_moe_16b", "deepseek_v2_lite_16b", "mamba2_1p3b",
             "zamba2_2p7b", "hubert_xlarge", "pixtral_12b")
+#: case -> (smoke config, its overrides, the parameters whose gradients
+#: are compared)
+GRAD_CASES = {
+    "deepseek_7b": ("deepseek_7b", {}, ("embed.table",
+                                        "blocks.0.mixer.wq.w")),
+    "deepseek_moe_16b": ("deepseek_moe_16b", {},
+                         ("blocks.1.ffn.experts.up.w",
+                          "blocks.1.ffn.router.w", "blocks.0.mixer.wq.w")),
+    "deepseek_v2_lite_16b": ("deepseek_v2_lite_16b", {},
+                             ("blocks.0.mixer.wuk.w", "blocks.0.mixer.wuv.w",
+                              "blocks.1.ffn.router.w")),
+    "mamba2_1p3b": ("mamba2_1p3b", {}, ("blocks.0.mixer.in_x.w",)),
+    "gqa_kv_heads_1": ("deepseek_7b", {"n_kv_heads": 1},
+                       ("blocks.0.mixer.wq.w", "blocks.0.mixer.wk.w")),
+}
 
 
 def run(rank: int, world: int, init_file: str, ref_npz: str,
@@ -130,6 +152,9 @@ def _cases(rank: int, ref, out_dir: str) -> dict:
                 got = float(train_loss(fmodel, fbatch)[0].full_tensor())
         out["family_losses"][arch] = (got, want_loss)
 
+    out["grads"] = {case: _grads(dm, arch, over, names)
+                    for case, (arch, over, names) in GRAD_CASES.items()}
+
     ckpt = os.path.join(out_dir, "ckpt")
     tr = ElasticTrainer(
         cfg, tc, DataConfig(batch_per_host=BATCH, seq_len=SEQ),
@@ -143,3 +168,35 @@ def _cases(rank: int, ref, out_dir: str) -> dict:
     out["trainer_active"] = tr.active
     out["trainer_mesh"] = list(tr.mesh.mesh_dim_names)
     return out
+
+
+def _grads(dm, arch: str, overrides: dict, names) -> dict:
+    """``arch``'s smoke ``train_loss`` (float32, plain attention) and its
+    gradients with respect to ``names``, sharded on ``dm`` and unsharded:
+    the two losses and each gradient's largest difference over the
+    unsharded one's largest magnitude."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed import (rescale, set_parameters,
+                                         sharding_context)
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.training import DataConfig, make_pipeline
+    from repro_torch.training.train import parameters
+    cfg = smoke_config(arch).scaled(attention_impl="reference",
+                                    dtype="float32", **overrides)
+    plain = init_params(cfg, seed=0, device="cpu")
+    model = copy.deepcopy(plain)
+    set_parameters(model, rescale(parameters(model), dm))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+             make_pipeline(cfg, DataConfig(batch_per_host=BATCH, seq_len=SEQ))
+             .batch(0).items()}
+    loss = train_loss(plain, batch)[0]
+    want = torch.autograd.grad(loss, [parameters(plain)[n] for n in names])
+    with sharding_context(dm):
+        got_loss = train_loss(model, batch)[0]
+        got = torch.autograd.grad(got_loss,
+                                  [parameters(model)[n] for n in names])
+    return {"losses": (float(got_loss.full_tensor()), float(loss)),
+            "err_of_scale": {
+                n: float((g.full_tensor() - w).abs().max()
+                         / w.abs().max().clamp_min(1e-30))
+                for n, g, w in zip(names, got, want)}}

@@ -19,6 +19,12 @@ and outputs as ``.npz``. The tests below read the ranks' results:
   1e-5 of the unsharded port, and one AdamW step within 1e-4 of each
   parameter's scale; the loss of one smoke config of every other family
   (both MoE configs) within rtol 1e-5 too;
+* the gradients of the regions' parameters on that mesh (the embedding
+  table, ``wq``, an expert weight, the router and an earlier layer's
+  ``wq`` of a MoE config, MLA's ``wuk`` and ``wuv``, mamba2's ``in_x``;
+  ``wq`` and ``wk`` with one KV head, which replicates while the query
+  heads could shard)
+  within ``GRAD_BAR`` of each gradient's scale of the unsharded ones;
 * ``ElasticTrainer(mesh=(pod=2, data=2))``: a failure after a checkpoint,
   the restore onto ``surviving_mesh``, the replay equal to the first pass
   (within ``REPLAY_RTOL``: the replay runs on half the ranks, so its batch
@@ -41,6 +47,9 @@ WORLD = 4
 
 #: the replay runs over 2 ranks instead of 4: float32 rounding of the mean
 REPLAY_RTOL = 1e-6
+#: sharded gradients against the unsharded: float32 partial sums added in
+#: another order across the ranks
+GRAD_BAR = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -119,6 +128,17 @@ def test_every_familys_sharded_loss_equals_the_unsharded(ranks, arch):
     for res in ranks:
         got, want = res["family_losses"][arch]
         assert got == pytest.approx(want, rel=1e-5)
+
+
+@pytest.mark.parametrize("case", ["deepseek_7b", "deepseek_moe_16b",
+                                  "deepseek_v2_lite_16b", "mamba2_1p3b",
+                                  "gqa_kv_heads_1"])
+def test_sharded_gradients_equal_the_unsharded(ranks, case):
+    for res in ranks:
+        got = res["grads"][case]
+        assert got["losses"][0] == pytest.approx(got["losses"][1], rel=1e-5)
+        for name, err in got["err_of_scale"].items():
+            assert err < GRAD_BAR, (name, err)
 
 
 def test_sharded_adamw_step_equals_the_unsharded(ranks):

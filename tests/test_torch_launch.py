@@ -1,9 +1,9 @@
 """The port's dry-run (``repro_torch.launch.dryrun``) on the CPU.
 
 Each smoke config runs all four shapes at the single-pod (data=16,
-model=16) mesh through ``lower_cell`` (a fake 256-rank process group, the
-cells on the ``meta`` device), in a process of its own: the fake group is
-process state. The records:
+model=16) mesh through the CLI's ``--smoke`` (``lower_cell`` on a fake
+256-rank process group, the cells on the ``meta`` device), in a process
+of its own: the fake group is process state. The records:
 
 * ``skipped`` exactly where the reference's ``cell_supported`` says so;
 * every ``ok`` cell has ``flops > 0`` and ``memory.argument_bytes`` equal
@@ -48,22 +48,6 @@ from repro_torch.launch.specs import (SHAPE_KIND, SHAPES,  # noqa: E402
 SRC = Path(__file__).parent.parent / "src"
 MESH = {"data": 16, "model": 16}
 
-RUN_CELLS = """
-import json, sys
-from repro_torch.configs import smoke_config
-from repro_torch.launch.dryrun import lower_cell
-from repro_torch.launch.specs import SHAPES
-arch, out = sys.argv[1], sys.argv[2]
-recs = {}
-for shape in SHAPES:
-    try:
-        recs[shape] = lower_cell(arch, shape, multi_pod=False,
-                                 cfg_override=smoke_config(arch))
-    except Exception as e:
-        recs[shape] = {"status": "error", "error": repr(e)}
-json.dump(recs, open(out, "w"))
-"""
-
 
 def _run(args, timeout=600):
     env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
@@ -77,8 +61,12 @@ def records(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
 
     def cells(arch):
-        _run(["-c", RUN_CELLS, arch, str(out / f"{arch}.json")])
-        return arch, json.loads((out / f"{arch}.json").read_text())
+        path = out / f"{arch}.json"
+        _run(["-m", "repro_torch.launch.dryrun", "--smoke", "--mesh",
+              "single", "--arch", arch, "--out", str(path)])
+        recs = json.loads(path.read_text())
+        return arch, {shape: recs[f"{arch}/{shape}/single/smoke"]
+                      for shape in SHAPES}
     slow_first = sorted(ARCH_IDS, key=lambda a: get_config(a).family
                         not in ("ssm", "hybrid"))   # the SSD scan's loop
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
