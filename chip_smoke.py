@@ -23,7 +23,8 @@ Phases, each of which exits non-zero on failure:
    ``decode_attention`` (K3, split over positions: the serving shape beside
    ``scaled_dot_product_attention``, one row of 32 768 positions,
    deepseek-moe-16b's G = 1 over 16 KV heads, and a sweep over groups and
-   head dims; zeros at length 0 and the same bits on a second call),
+   head dims, 14 and 96 among them (zero-padded to the kernel's next);
+   zeros at length 0 and the same bits on a second call),
    ``ssd_scan`` (K5, three passes: the mamba2 and zamba2 prefill shapes
    in bf16 and float32, the reference tests' shapes in float32, and
    strong decay, within 5e-5 in float32 and 2e-2 in bf16 of its plain
@@ -224,10 +225,26 @@ Phases, each of which exits non-zero on failure:
     multi_pod=False, cfg_override=smoke_config(arch))`` for one smoke
     config of every family (a fake 256-rank group on the CPU, in two
     subprocesses, the cards hidden); each record is printed and every one
-    must be ``ok``.
+    must be ``ok``;
+34. the examples: each ``examples/<name>_torch.py``'s ``main`` in this
+    process at the reference's default arguments (``EXAMPLE_ARGS``), its
+    lines captured into ``build/examples/``: quickstart (90 minutes; K1 once
+    per ARIMA chunk, ``gp_lbfgs`` once per GP bank fit), dsp_repro (3 h,
+    the four methods; K1 and ``gp_lbfgs``), dsp_sweep --verify (1 h, 18
+    scenarios; ``fused_interval`` once per ``step_interval`` call, and
+    "equivalence OK"), serve_autoscale (qwen2-7b's smoke config, 4
+    simulated hours; K3, and K1 and ``gp_lbfgs`` in phase 2's controller)
+    and train_elastic (300 steps, the failure at 160: no kernel, the
+    replayed losses bit for bit); each run fails if another kernel ran.
+    Card against CPU: quickstart's and dsp_repro's lines equal (dsp_repro's
+    arrays at rtol 1e-9, its profiling cost at 2e-9), dsp_sweep's lines
+    equal but the walls, serve_autoscale's phase-1 tokens equal (float32,
+    TF32 off). Rehearse with ``examples_phase(("cpu", "cpu"))``.
 
-The last three lines of standard output are the ``nvidia-smi`` line, the
-``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``. The
+The last four lines of standard output are the ``{"examples": {...}}``
+line (each example's card wall, launches and agreement), the
+``nvidia-smi`` line, the ``{"kernels": [...]}`` line and ``{"ok": true,
+"device": {...}}``. The
 ``kernels`` line reports each kernel's launches on its own main path (K1
 and K2 on the Demeter path, as ``arima_chunk`` and ``fused_interval``, K3
 on the qwen2-7b serving path, K5 on the mamba2-1.3b one, K4 on the
@@ -364,7 +381,7 @@ CARD_VS_CPU = {SERVE_ARCH: (2, 4, (16, 32), 8),
 #: and head dims; bars against the plain version (which rounds the softmax
 #: weights to bf16 before the weighted sum, where the kernel keeps float32)
 ATTN_BARS = {"float32": 2e-5, "bfloat16": 2e-2}
-ATTN_SWEEP_GROUPS, ATTN_SWEEP_DIMS = (1, 4, 7), (64, 128, 256)
+ATTN_SWEEP_GROUPS, ATTN_SWEEP_DIMS = (1, 4, 7), (14, 64, 96, 128, 256)
 #: K5's bars against its plain version (atol and rtol): the reference's
 #: own in float32, and in bf16 the output's rounding to bf16
 SSD_BARS = {"float32": 5e-5, "bfloat16": 2e-2}
@@ -445,6 +462,13 @@ NO_MODEL_PATH = ("fused_rmsnorm",)
 #: paths launch fused_interval and arima_chunk instead, and the Demeter
 #: path must count none of these
 PER_TICK_KERNELS = ("fused_tick", "rls_update")
+
+
+def kernel_module(name: str):
+    """The module ``repro_torch.kernels.<name>``: the package exports the
+    wrapper of the same name, which shadows the module as an attribute."""
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def fail(msg: str) -> NoReturn:
@@ -968,8 +992,8 @@ def check_decode_attention(B: int, S: int, Hkv: int, G: int, D: int, dtype,
     timed only: it reads the whole cache, under a length mask)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as kmod
     from repro_torch.kernels.ref import decode_attention_ref
+    kmod = kernel_module("decode_attention")
     q, k, v, lengths = attention_operands(B, S, Hkv, G, D, dtype)
     got = kmod.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
@@ -985,8 +1009,9 @@ def check_decode_attention(B: int, S: int, Hkv: int, G: int, D: int, dtype,
         fail(f"{label}: a second call is not bit for bit the first")
     chunk, n_split = kmod.split_plan(
         B, S, Hkv, torch.cuda.get_device_properties(0).multi_processor_count)
-    pass1 = (f"decode_split_bf16_kernel<{D}>" if dtype == torch.bfloat16
-             else f"decode_split_f32_kernel<{D},{1 << (G - 1).bit_length()}>")
+    Dp = kmod.padded_head_dim(D)       # the width the kernel runs at
+    pass1 = (f"decode_split_bf16_kernel<{Dp}>" if dtype == torch.bfloat16
+             else f"decode_split_f32_kernel<{Dp},{1 << (G - 1).bit_length()}>")
     out = {"B": B, "S_max": S, "Hkv": Hkv, "G": G, "D": D, "dtype": name,
            "max_abs_err": err, "design": "split-kv", "chunk": chunk,
            "n_split": n_split,
@@ -1043,8 +1068,8 @@ def check_ssd_scan(B: int, S: int, H: int, P: int, G: int, N: int,
     HBM, the larger). No single PyTorch call computes the scan, so there is
     no library time."""
     import torch
-    from repro_torch.kernels import ssd_scan as kmod
     from repro_torch.kernels.ref import ssd_scan_ref
+    kmod = kernel_module("ssd_scan")
     ops = ssd_operands(B, S, H, P, G, N, dtype, a_log_max=a_log_max,
                        dt_max=dt_max)
     got = kmod.ssd_scan(*ops, chunk=chunk)
@@ -1120,8 +1145,8 @@ def check_flash_attention(B: int, Sq: int, Hq: int, Hkv: int, D: int, dtype,
     whole."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as kmod
     from repro_torch.kernels.ref import flash_attention_ref
+    kmod = kernel_module("flash_attention")
     g = torch.Generator(device="cuda").manual_seed(B * 7 + Sq + D)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
                for shape in ((B, Sq, Hq, D), (B, Sq, Hkv, D),
@@ -1239,8 +1264,8 @@ def check_grouped_matmul(n_tok: int, top_k: int, E: int, K: int, N: int,
     its (E, C, d) capacity buffer at these shapes (``einsum_ms``: gate, up
     and down; timed only)."""
     import torch
-    from repro_torch.kernels import grouped_matmul as kmod
     from repro_torch.kernels.ref import grouped_matmul_ref
+    kmod = kernel_module("grouped_matmul")
     lhs, rhs, srt, flat_e, x = gmm_operands(n_tok, top_k, E, K, N, blk,
                                             dtype)
     te = srt.tile_expert
@@ -2800,12 +2825,12 @@ def serving_main_path(device: str = "cuda", arch: str = SERVE_ARCH,
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as k3
-    from repro_torch.kernels import grouped_matmul as k6
     from repro_torch.kernels import rmsnorm as k7
-    from repro_torch.kernels import ssd_scan as k5
     from repro_torch.models import init_params, logits_from_hidden
     from repro_torch.serving import ServingEngine
+    k3 = kernel_module("decode_attention")
+    k5 = kernel_module("ssd_scan")
+    k6 = kernel_module("grouped_matmul")
     cfg = get_config(arch)
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0, device=device)
@@ -3063,8 +3088,8 @@ def encoder_main_path(device: str = "cuda", clips: int = ENCODE_CLIPS,
     launches once per layer and call."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as k4
     from repro_torch.models import encode, init_params
+    k4 = kernel_module("flash_attention")
     on_card = device == "cuda"
     cfg = get_config(ENCODER_ARCH)
     t0 = time.perf_counter()
@@ -3120,8 +3145,8 @@ def encoder_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as k4
     from repro_torch.models import encode, init_params
+    k4 = kernel_module("flash_attention")
     layers, b, s, _ = ENCODER_CARD_VS_CPU
     cfg = get_config(ENCODER_ARCH).scaled(n_layers=layers)
     frames = torch.from_numpy(np.random.default_rng(2).normal(
@@ -3181,8 +3206,8 @@ def vlm_main_path(device: str = "cuda", seq: int = VLM_SEQ) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.pixtral_12b import PATCH_PREFIX
-    from repro_torch.kernels import flash_attention as k4
     from repro_torch.models import init_params, train_loss
+    k4 = kernel_module("flash_attention")
     on_card = device == "cuda"
     cfg = get_config(VLM_ARCH)
     t0 = time.perf_counter()
@@ -3273,9 +3298,11 @@ def vlm_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
 def launch_counted():
     """Every kernel wrapper that counts its launches: K1-K7, the per-tick
     counterparts of K2 and K1, and the GP fit."""
-    from repro_torch.kernels import (decode_attention, flash_attention,
-                                     fused_tick, gp_fit, grouped_matmul,
-                                     rls_update, rmsnorm, ssd_scan)
+    from repro_torch.kernels import fused_tick, gp_fit, rls_update, rmsnorm
+    decode_attention, flash_attention, grouped_matmul, ssd_scan = (
+        kernel_module(name) for name in ("decode_attention",
+                                         "flash_attention", "grouped_matmul",
+                                         "ssd_scan"))
     return (fused_tick.fused_interval, rls_update.arima_chunk,
             decode_attention.decode_attention, ssd_scan.ssd_scan,
             flash_attention.flash_attention, grouped_matmul.grouped_matmul,
@@ -3706,9 +3733,9 @@ def mesh_decode(mesh, device: str, arch: str = SERVE_ARCH) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding_context
-    from repro_torch.kernels import decode_attention as k3
     from repro_torch.models import init_params
     from repro_torch.serving import ServingEngine
+    k3 = kernel_module("decode_attention")
     cfg = get_config(arch)
     model = init_params(cfg, seed=0, device=device)
     rng = np.random.default_rng(32)
@@ -4003,6 +4030,272 @@ def dryrun_phase() -> list:
         fail(f"phase 33: dry-run train_4k cells {got}, expected every one "
              f"of {want} ok; stderr tails: {errs}")
     return recs
+
+
+# ---------------------------------------------------------------------------
+# the examples
+# ---------------------------------------------------------------------------
+
+#: phase 34: each example at the reference's default arguments (dsp_repro
+#: at 3 h, dsp_sweep with --verify); train_elastic's failure at step 160,
+#: not its default 150, which falls on a checkpoint and replays no step
+EXAMPLE_ARGS = {"quickstart": [], "dsp_repro": ["--hours", "3"],
+                "dsp_sweep": ["--verify"],
+                "serve_autoscale": ["--arch", SERVE_ARCH],
+                "train_elastic": ["--fail-at", "160"]}
+#: where phase 34 writes each run's printed lines (build/ is ignored)
+EXAMPLE_LOGS = REPO / "build" / "examples"
+#: the wall-clock figures of the examples' lines, left out card vs CPU
+EXAMPLE_WALLS = (r"[\d.]+ s wall", r"speedup [\d.]+x")
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` as a fresh module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", REPO / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, device: str) -> dict:
+    """``main([*EXAMPLE_ARGS[name], "--device", device])`` of the example
+    ``name`` in this process, its standard output captured (and written
+    under ``EXAMPLE_LOGS``): its result, lines, wall and every kernel's
+    launches over the call."""
+    import io
+    import torch
+    mod = load_example(name)
+    buf = io.StringIO()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main([*EXAMPLE_ARGS[name], "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    EXAMPLE_LOGS.mkdir(parents=True, exist_ok=True)
+    (EXAMPLE_LOGS / f"{name}_{device}.log").write_text(buf.getvalue())
+    return {"out": out, "lines": lines, "wall_s": wall,
+            "launches": kernel_launches()}
+
+
+def same_lines(a: list, b: list) -> bool:
+    """The lines equal but for their wall-clock figures."""
+    import re
+
+    def strip(lines):
+        out = []
+        for line in lines:
+            for pat in EXAMPLE_WALLS:
+                line = re.sub(pat, "<wall>", line)
+            out.append(line)
+        return out
+    return strip(a) == strip(b)
+
+
+def first_line_difference(a: list, b: list) -> str:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return f"line {i}: {x!r} vs {y!r}"
+    return f"{len(a)} vs {len(b)} lines"
+
+
+def launched(counts: dict, expect: tuple, name: str,
+             device: str = "cuda") -> dict:
+    """The nonzero launch counts; on the card, fails unless each kernel of
+    ``expect`` was launched and no other was."""
+    got = {k: v for k, v in counts.items() if v}
+    if device != "cuda":
+        return got
+    missing = [k for k in expect if not got.get(k)]
+    extra = sorted(set(got) - set(expect))
+    if missing or extra:
+        fail(f"example {name}: kernels {missing} not launched, {extra} "
+             f"launched unexpectedly: {counts}")
+    return got
+
+
+def example_quickstart(devices=("cuda", "cpu")) -> dict:
+    """quickstart (90 minutes) on the card: K1 once per ARIMA chunk of its
+    forecast bank and ``gp_lbfgs`` once per GP bank fit; then on the CPU:
+    the same lines (profiling, reconfigurations, final state)."""
+    from repro_torch.core import gp_bank
+    fits = count_fit_calls(gp_bank)
+    try:
+        card = run_example("quickstart", devices[0])
+    finally:
+        fits.restore()
+    got = launched(card["launches"], ("arima_chunk", "gp_lbfgs"),
+                   "quickstart", devices[0])
+    chunks = card["out"].tsf.bank.arima_chunks
+    if devices[0] == "cuda" and (got["arima_chunk"] != chunks
+                                 or got["gp_lbfgs"] != fits.n):
+        fail(f"example quickstart: {got} for {chunks} ARIMA chunks and "
+             f"{fits.n} GP bank fits")
+    cpu = run_example("quickstart", devices[1])
+    if card["lines"] != cpu["lines"]:
+        fail(f"example quickstart, card vs CPU: "
+             f"{first_line_difference(card['lines'], cpu['lines'])}")
+    return {"wall_s": card["wall_s"], "launches": got,
+            "reconfigurations": card["out"].n_reconfigurations,
+            "agreement": "lines equal card vs CPU",
+            "cpu_wall_s": cpu["wall_s"]}
+
+
+def example_dsp_repro(devices=("cuda", "cpu")) -> dict:
+    """dsp_repro --hours 3 on the card (K1 and ``gp_lbfgs`` in its Demeter
+    cell), then on the CPU: equal lines and reconfigurations and failure
+    records, the arrays at rtol 1e-9 and the profiling cost at 2e-9 (the
+    forecast bank's float64 RLS on raw rates, ROADMAP.md §3)."""
+    import numpy as np
+    card = run_example("dsp_repro", devices[0])
+    got = launched(card["launches"], ("arima_chunk", "gp_lbfgs"),
+                   "dsp_repro", devices[0])
+    cpu = run_example("dsp_repro", devices[1])
+    worst = 0.0
+    for method, a in card["out"].items():
+        b = cpu["out"][method]
+        for f in ("times", "rates", "latencies", "usage_cpu",
+                  "usage_mem_mb", "workers"):
+            if not np.allclose(getattr(a, f), getattr(b, f), rtol=1e-9,
+                               atol=0.0):
+                fail(f"example dsp_repro {method}: {f} differs card vs CPU")
+        recs = [[(r.t_inject, r.workload, r.recovery_s, r.capped)
+                 for r in x.failures] for x in (a, b)]
+        if a.n_reconfigurations != b.n_reconfigurations or recs[0] != recs[1]:
+            fail(f"example dsp_repro {method}: reconfigurations "
+                 f"{a.n_reconfigurations} vs {b.n_reconfigurations}, "
+                 f"failures {recs[0]} vs {recs[1]}")
+        for f in ("profile_cpu_s", "profile_mem_mb_s"):
+            x, y = getattr(a, f), getattr(b, f)
+            rel = abs(x - y) / abs(y) if y else abs(x)
+            worst = max(worst, rel)
+            if rel > 2e-9:
+                fail(f"example dsp_repro {method}: {f} {x} vs {y}")
+    if card["lines"] != cpu["lines"]:
+        fail(f"example dsp_repro, card vs CPU: "
+             f"{first_line_difference(card['lines'], cpu['lines'])}")
+    return {"wall_s": card["wall_s"], "launches": got,
+            "agreement": f"lines equal; arrays at rtol 1e-9; profiling cost "
+                         f"within {worst:.3g} relative (bar 2e-9)",
+            "cpu_wall_s": cpu["wall_s"]}
+
+
+def example_dsp_sweep(devices=("cuda", "cpu")) -> dict:
+    """dsp_sweep --verify (1 h, 18 scenarios) on the fused engine of the
+    card: K2 once per ``step_interval`` call, "equivalence OK" against the
+    scalar engine; then on the CPU: the same lines but the walls."""
+    from repro_torch.dsp import FusedSweepExecutor
+    timers = LayerTimers()
+    timers.wrap(FusedSweepExecutor, "step_interval", "intervals")
+    try:
+        card = run_example("dsp_sweep", devices[0])
+    finally:
+        timers.restore()
+    got = launched(card["launches"], ("fused_interval",), "dsp_sweep",
+                   devices[0])
+    intervals = timers.calls.get("intervals", 0)
+    if devices[0] == "cuda" and got["fused_interval"] != intervals:
+        fail(f"example dsp_sweep: {got['fused_interval']} fused_interval "
+             f"launches for {intervals} step_interval calls")
+    if not card["lines"][-1].endswith("equivalence OK"):
+        fail(f"example dsp_sweep: {card['lines'][-1]!r}")
+    cpu = run_example("dsp_sweep", devices[1])
+    if not same_lines(card["lines"], cpu["lines"]):
+        fail(f"example dsp_sweep, card vs CPU: "
+             f"{first_line_difference(card['lines'], cpu['lines'])}")
+    return {"wall_s": card["wall_s"], "launches": got,
+            "step_interval_calls": intervals,
+            "scenarios": len(card["out"].scenarios),
+            "agreement": "equivalence OK (scalar engine); lines equal card "
+                         "vs CPU but the walls",
+            "cpu_wall_s": cpu["wall_s"]}
+
+
+def example_serve_autoscale(devices=("cuda", "cpu")) -> dict:
+    """serve_autoscale --arch qwen2_7b (4 simulated hours) on the card:
+    K3 in phase 1's engine and ``calibrate``'s steps, K1 and ``gp_lbfgs``
+    in phase 2's controller. Card against CPU: phase 1 alone, on one
+    float32 draw of the smoke config (2 layers) with TF32 off, as phases 9,
+    12 and 14 hold serving: the same tokens for every request (phase 2
+    runs on measured step times, so no two runs share its decisions)."""
+    import copy
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    card = run_example("serve_autoscale", devices[0])
+    got = launched(card["launches"], ("decode_attention", "arima_chunk",
+                                      "gp_lbfgs"), "serve_autoscale",
+                   devices[0])
+    eng, demeter = card["out"]
+    mod = load_example("serve_autoscale")
+    cfg = smoke_config(SERVE_ARCH).scaled(dtype="float32")
+    model = init_params(cfg, seed=0, device="cpu")
+    mod.init_params = lambda cfg, seed, device: copy.deepcopy(model).to(
+        device)
+    ids = [f"req-{i}" for i in range(12)]
+    tokens = {}
+    with NoTF32(), contextlib.redirect_stdout(sys.stderr):
+        for dev in devices:
+            e = mod.phase1_real_engine(cfg, dev)
+            tokens[dev] = [e.requests[i].output for i in ids]
+    a, b = (tokens[d] for d in devices)
+    if a != b or not all(len(t) == 8 for t in a):
+        fail(f"example serve_autoscale phase 1, card vs CPU: tokens {a} "
+             f"vs {b}")
+    return {"wall_s": card["wall_s"], "launches": got,
+            "completed": eng.metrics.completed,
+            "decode_steps": eng.metrics.decode_steps,
+            "reconfigurations": demeter.n_reconfigurations,
+            "agreement": "phase 1 tokens equal card vs CPU (float32, 2 "
+                         "layers); phase 2 not compared"}
+
+
+def example_train_elastic(devices=("cuda", "cpu")) -> dict:
+    """train_elastic (300 steps of 8 x 128, the failure at step 160) on the
+    card: no kernel launched (the plain attention route), finite losses,
+    and the steps replayed after the restore from step 150 equal the first
+    pass's losses bit for bit."""
+    card = run_example("train_elastic", devices[0])
+    launched(card["launches"], (), "train_elastic", devices[0])
+    events = card["out"].events
+    first = {}
+    replayed = []
+    for e in events:
+        if e.step in first:
+            replayed.append((e.step, e.loss, first[e.step]))
+        else:
+            first[e.step] = e.loss
+    if len(events) != 300 or not all(math.isfinite(e.loss)
+                                     for e in events):
+        fail(f"example train_elastic: {len(events)} events")
+    if [s for s, _, _ in replayed] != list(range(150, 160)) or any(
+            a != b for _, a, b in replayed):
+        fail(f"example train_elastic: replay {replayed}")
+    return {"wall_s": card["wall_s"], "launches": {},
+            "events": len(events), "replayed_steps": len(replayed),
+            "loss": [events[0].loss, events[-1].loss],
+            "agreement": "replayed losses equal the first pass bit for bit"}
+
+
+def examples_phase(devices=("cuda", "cpu")) -> dict:
+    """Phase 34: every example's ``main`` in this process on the card
+    (``devices[0]``), with its checks; returns each one's summary.
+    Rehearse on the CPU with ``examples_phase(("cpu", "cpu"))``."""
+    out = {}
+    for name, fn in (("quickstart", example_quickstart),
+                     ("dsp_repro", example_dsp_repro),
+                     ("dsp_sweep", example_dsp_sweep),
+                     ("serve_autoscale", example_serve_autoscale),
+                     ("train_elastic", example_train_elastic)):
+        t0 = time.perf_counter()
+        out[name] = fn(devices)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        print(f"example {name} " + json.dumps(out[name]), flush=True)
+    return out
 
 
 def main() -> int:
@@ -4404,6 +4697,14 @@ def main() -> int:
     print(f"phase 33 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t_phase:.1f} s)")
 
+    # -- 34. the examples ----------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    examples = examples_phase()
+    print(f"phase 34 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
     # -- summary lines: each kernel's launches on its main path and its
     # times at that path's shapes
     tick = tick_rows[main_tick_rows]
@@ -4560,6 +4861,7 @@ def main() -> int:
             if not (min(n.values()) if isinstance(n, dict) else n) > 0:
                 fail(f"{k['name']} was not launched on the {label} path")
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"examples": examples}))
     print(nvidia_smi_line())
     # the training path runs none of them (phase 28 fails otherwise)
     print(json.dumps({"kernels": kernels, "training": {

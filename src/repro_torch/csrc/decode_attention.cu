@@ -47,7 +47,9 @@
 //   its own registers) and D/32 dims for the values; the warps merge in
 //   warp order.
 // Every multiply-add is an explicit fmaf: the unit is built with
-// --fmad=false. G is at most 16; D is a template value (64, 128, 256).
+// --fmad=false. G is at most 16; D is a template value (64, 128, 256); a
+// narrower head reaches the kernel zero-padded to the next of them, with
+// its own 1/sqrt(D) passed as d_scale.
 #include <cstdint>
 #include <type_traits>
 
@@ -647,6 +649,7 @@ struct Args {
   float *o_part, *ml_part;
   int64_t B, S;
   int Hkv, G, chunk, n_split;
+  int d_scale;  // the head dim whose 1/sqrt scales the scores
   cudaStream_t stream;
 };
 
@@ -673,7 +676,7 @@ int launch_bf16(const Args& a) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale2 = 1.0f / sqrtf(static_cast<float>(D)) * kLog2e;
+  const float scale2 = 1.0f / sqrtf(static_cast<float>(a.d_scale)) * kLog2e;
   kernel<<<split_grid(a), kWarps16 * 32, smem, a.stream>>>(
       static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
       static_cast<const uint16_t*>(a.v),
@@ -686,7 +689,7 @@ int launch_bf16(const Args& a) {
 
 template <int D, int GMAX>
 int launch_f32(const Args& a) {
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.d_scale));
   decode_split_f32_kernel<D, GMAX><<<split_grid(a), kThreads32, 0,
                                      a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
@@ -718,17 +721,20 @@ int launch_d(const Args& a, int dtype) {
 // Plain C entry point for ctypes. Every pointer is a device pointer to a
 // contiguous buffer aligned to 16 bytes; `part` holds B * Hq * n_split *
 // (D + 2) floats of scratch (the chunks' partial states); dtype is 0 for
-// float32 and 1 for bfloat16; 1 <= G <= 16; D is 64, 128 or 256; chunk is
-// a positive multiple of 64 and n_split = ceil(S / chunk) (the wrapper
-// checks all of these). Launches both passes on `stream` without
+// float32 and 1 for bfloat16; 1 <= G <= 16; D is 64, 128 or 256; the
+// scores are scaled by 1/sqrt(d_scale), 1 <= d_scale <= D: D itself, or the
+// true head dim of operands the wrapper zero-padded to D; chunk is a
+// positive multiple of 64 and n_split = ceil(S / chunk) (the wrapper checks
+// all of these). Launches both passes on `stream` without
 // synchronising and returns cudaGetLastError(), or -1 for a bad argument.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
                                        void* out, void* part, int64_t B,
                                        int64_t S, int Hkv, int G, int D,
-                                       int dtype, int chunk, int n_split,
-                                       void* stream) {
+                                       int d_scale, int dtype, int chunk,
+                                       int n_split, void* stream) {
   if (G < 1 || G > 16 || B < 1 || B > 65535 || S < 1 || Hkv < 1
+      || d_scale < 1 || d_scale > D
       || Hkv > 65535 || chunk < kChunkQuantum || chunk % kChunkQuantum
       || n_split < 1 || n_split > kMaxSplits
       || static_cast<int64_t>(n_split) * chunk < S
@@ -737,7 +743,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   const int64_t slots = B * Hkv * G * static_cast<int64_t>(n_split);
   float* o_part = static_cast<float*>(part);
   const Args a{q, k, v, lengths, out, o_part, o_part + slots * D, B, S, Hkv,
-               G, chunk, n_split, static_cast<cudaStream_t>(stream)};
+               G, chunk, n_split, d_scale, static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 64: return launch_d<64>(a, dtype);
     case 128: return launch_d<128>(a, dtype);

@@ -46,7 +46,7 @@ SIGNATURES = {
         "arima_chunk_launch": [_C] * 12 + [_I64] * 2 + [_I] * 2 + [_C] * 3,
     },
     "decode_attention": {
-        "decode_attention_launch": [_C] * 6 + [_I64, _I64] + [_I] * 6 + [_C],
+        "decode_attention_launch": [_C] * 6 + [_I64, _I64] + [_I] * 7 + [_C],
     },
     "flash_attention": {
         "flash_attention_launch": [_C] * 4 + [_I64] * 3 + [_I] * 5 + [_C],

@@ -5,7 +5,11 @@ Replaces the reference's Pallas kernel
 grouped-query attention over each row's first ``lengths[b]`` cache entries,
 with an online softmax in float32. The serving path's ``decode_step``
 launches it once per layer. It reads the cache in place, in the layout the
-model keeps it, ``(B, S_max, Hkv, D)``. The kernel takes CUDA tensors only;
+model keeps it, ``(B, S_max, Hkv, D)``, at the head dims it is built for
+(:data:`HEAD_DIMS`); a narrower head (the reduced configs', 14 for
+qwen2-7b's) is zero-padded to the next of them in a copy, which adds
+nothing to a score and gives zero output columns, cut off after the
+launch, and the scores keep its own ``1/sqrt(D)``. The kernel takes CUDA tensors only;
 :func:`repro_torch.kernels.ops.decode_attention` routes CPU tensors to the
 plain version (:func:`repro_torch.kernels.ref.decode_attention_ref`).
 
@@ -29,7 +33,8 @@ from . import build
 
 #: dtype code of the C entry point
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is built for, and the largest group it takes
+#: head dims the kernel is built for (a narrower head is zero-padded to the
+#: next), and the largest group it takes
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16
 #: a chunk is a power of two of at least 64 positions (four warps of
@@ -66,6 +71,11 @@ def split_plan(B: int, S_max: int, Hkv: int, n_sm: int) -> Tuple[int, int]:
     return chunk, -(-S_max // chunk)
 
 
+def padded_head_dim(D: int) -> int:
+    """The head dim of :data:`HEAD_DIMS` the kernel runs ``D`` at."""
+    return next(p for p in HEAD_DIMS if D <= p)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -92,9 +102,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if not 1 <= G <= MAX_GROUP:
         raise ValueError(f"the decode_attention kernel takes groups of 1 to "
                          f"{MAX_GROUP} query heads per KV head, got {G}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the decode_attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got {D}")
+    if not 1 <= D <= HEAD_DIMS[-1]:
+        raise ValueError(f"the decode_attention kernel takes head dims up to "
+                         f"{HEAD_DIMS[-1]}, got {D}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -112,8 +122,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: Union[int, torch.Tensor]) -> torch.Tensor:
-    """q: (B, 1, Hq, D); k, v: (B, S_max, Hkv, D), one dtype (float32 or
-    bfloat16), contiguous, on one CUDA device; lengths: an int, a 0-d
+    """q: (B, 1, Hq, D); k, v: (B, S_max, Hkv, D), D up to 256, one dtype
+    (float32 or bfloat16), contiguous, on one CUDA device; lengths: an int, a 0-d
     tensor or (B,) integers, clamped to [0, S_max] by the kernel.
 
     Returns ``out (B, 1, Hq, D)`` in q's dtype (zeros for a row of length
@@ -121,6 +131,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as one launch of ``decode_attention.launches``.
     """
     B, S, Hkv, G, D = _check(q, k, v)
+    Dp = padded_head_dim(D)
+    if Dp != D:
+        q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
     if lengths.numel() not in (1, B) or lengths.dim() > 1:
         raise ValueError(f"lengths must be a scalar or ({B},), got shape "
@@ -128,20 +141,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths = lengths.reshape(-1).expand(B).contiguous()
     chunk, n_split = split_plan(B, S, Hkv, _sm_count(q.device.index))
     out = torch.empty_like(q)
-    part = torch.empty(B * Hkv * G * n_split * (D + 2), dtype=torch.float32,
+    part = torch.empty(B * Hkv * G * n_split * (Dp + 2), dtype=torch.float32,
                        device=q.device)
     fn = build.load("decode_attention").decode_attention_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         rc = fn(ptr(q), ptr(k), ptr(v), ptr(lengths), ptr(out), ptr(part), B,
-                S, Hkv, G, D, _DTYPES[q.dtype], chunk, n_split,
+                S, Hkv, G, Dp, D, _DTYPES[q.dtype], chunk, n_split,
                 ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
     decode_attention.launches += 1
-    return out
+    return out if Dp == D else out[..., :D].contiguous()
 
 
 #: Kernel launches since the process started (or the caller last reset it).

@@ -20,6 +20,8 @@ assignments, so a layer never waits on the host (the reference's helper
 ``sort_tokens_for_experts`` sizes it to the data, reading the group sizes
 on the host); tiles past the last group carry expert id -1 (zeros, no
 weights read), and assignments that capacity dropped get no row.
+:func:`sort_tokens_for_experts` is the reference's helper on top of it,
+cut to the data's size on the host.
 """
 from __future__ import annotations
 
@@ -178,3 +180,32 @@ def sort_assignments(expert_ids: torch.Tensor, keep: torch.Tensor,
                               right=True)
     tile_expert = torch.where(tile < n_experts, tile, -1).to(torch.int32)
     return ExpertSort(dest, tile_expert, rows)
+
+
+def sort_tokens_for_experts(x, expert_ids, n_experts: int, blk_m: int = 128):
+    """The reference's host helper: the rows of ``x`` (N, K) sorted by
+    ``expert_ids`` (N,), stably, each expert's group padded with zero rows
+    to a multiple of ``blk_m``. Returns ``(lhs (M, K), tile_expert
+    (M / blk_m,) int32, inv (M,) int64: each row's source row or -1,
+    valid (M,) bool)``, M the data's padded size (``blk_m`` when there is
+    no row), as the reference's does. It sorts with
+    :func:`sort_assignments` and reads the group sizes on the host to cut
+    its buffer to M rows; the MoE path keeps the static buffer."""
+    x = torch.as_tensor(x)
+    ids = torch.as_tensor(expert_ids, device=x.device).long()
+    s = sort_assignments(ids, torch.ones_like(ids, dtype=torch.bool),
+                         n_experts, blk_m)
+    sizes = torch.bincount(ids, minlength=n_experts)
+    total = int(((sizes + blk_m - 1) // blk_m * blk_m).sum()) or blk_m
+    rows = max(s.rows, total)
+    lhs = x.new_zeros((rows, x.shape[1]))
+    inv = torch.full((rows,), -1, dtype=torch.int64, device=x.device)
+    lhs[s.dest] = x
+    inv[s.dest] = torch.arange(ids.numel(), device=x.device)
+    tile_expert = torch.zeros(rows // blk_m, dtype=torch.int32,
+                              device=x.device)
+    tile_expert[:s.tile_expert.numel()] = s.tile_expert
+    # within the data's rows a tile is -1 only when no row came (the
+    # reference's zeros then)
+    tile_expert = tile_expert[:total // blk_m].clamp_min(0)
+    return lhs[:total], tile_expert, inv[:total], inv[:total] >= 0

@@ -10,13 +10,20 @@
   ``forecast_backend=``, ``detector_backend=``) warn, with the warning at
   the same frame as the reference's, and give a ``SweepResult`` identical
   to the ``config=`` path; mixing the two raises;
-* ``ScalarAdapter(DSPExecutor)`` and ``ScenarioView``; the registries.
+* ``ScalarAdapter(DSPExecutor)`` and ``ScenarioView``; the registries;
+* ``repro_torch.kernels`` exports the reference's names, each a function
+  or the module the reference's is, plus the port's own;
+  ``sort_tokens_for_experts`` equals the reference's helper; importing the
+  package builds no kernel.
 
 The legacy kwargs resolve against ``EngineConfig()``, whose device is the
 card; where a run needs one on the CPU, the ``on_cpu`` fixture moves the
 resolved config to the CPU.
 """
 import inspect
+import os
+import subprocess
+import sys
 import warnings
 from pathlib import Path
 
@@ -34,7 +41,10 @@ import pytest  # noqa: E402
 
 import repro.core as ref_core  # noqa: E402
 import repro.dsp as ref_dsp  # noqa: E402
+import repro.kernels as ref_kernels  # noqa: E402
 import repro_torch.core as core  # noqa: E402
+import repro_torch.kernels as kernels  # noqa: E402
+import torch  # noqa: E402
 import repro_torch.core.demeter as demeter_mod  # noqa: E402
 import repro_torch.dsp as dsp  # noqa: E402
 import repro_torch.dsp.sweep as sweep_mod  # noqa: E402
@@ -67,6 +77,9 @@ PORT_ONLY = {
             "FAILURE_INTERVAL_S", "RECOVERY_CAP_S", "METRIC_WINDOW_S",
             "OPT_INTERVAL_S"},
 }
+#: the port's kernel exports beyond the reference's: the wrappers of the
+#: kernels the reference runs as per-tick loops or in plain JAX
+KERNELS_PORT_ONLY = {"arima_chunk", "fused_interval", "gp_lbfgs"}
 #: EngineConfig fields: the reference's, all ported, and the port's own
 #: (where tensors live)
 UNPORTED_FIELDS = ()
@@ -152,6 +165,82 @@ class TestApiSnapshot:
         assert isinstance(execu, core.Executor)
         assert isinstance(ScalarAdapter(execu), core.BatchExecutor)
         assert dsp.CONTROLLER_NAMES == ref_dsp.CONTROLLER_NAMES
+
+
+class TestKernelExports:
+    def test_exports(self):
+        assert not KERNELS_PORT_ONLY & set(ref_kernels.__all__)
+        assert set(kernels.__all__) == \
+            set(ref_kernels.__all__) | KERNELS_PORT_ONLY
+        assert len(kernels.__all__) == len(set(kernels.__all__))
+        for name in ("ops", "ref"):
+            assert getattr(kernels, name) is \
+                sys.modules[f"repro_torch.kernels.{name}"]
+        for name in set(kernels.__all__) - {"ops", "ref"}:
+            fn = getattr(kernels, name)
+            assert inspect.isfunction(fn), (name, fn)
+        # the dispatching wrappers, not the CUDA-only launchers
+        for name in set(kernels.__all__) - {"ops", "ref",
+                                            "sort_tokens_for_experts"}:
+            assert getattr(kernels, name) is getattr(kernels.ops, name)
+
+    def test_from_import_binds_functions(self):
+        from repro_torch.kernels import (decode_attention,  # noqa: F401
+                                         flash_attention, fused_rmsnorm,
+                                         grouped_matmul, ops, ref,
+                                         rls_rank1_update, ssd_scan,
+                                         sort_tokens_for_experts)
+        assert inspect.ismodule(ops) and inspect.ismodule(ref)
+        assert all(inspect.isfunction(f) for f in (
+            decode_attention, flash_attention, fused_rmsnorm, grouped_matmul,
+            rls_rank1_update, ssd_scan, sort_tokens_for_experts))
+        assert flash_attention.__module__ == "repro_torch.kernels.ops"
+
+    @pytest.mark.parametrize("n,E,blk_m,seed,empty", [
+        (37, 5, 16, 0, (2,)), (300, 8, 128, 1, (0, 7)), (0, 4, 16, 2, ()),
+        (130, 3, 128, 3, ()), (64, 6, 16, 4, (1, 3, 5))])
+    def test_sort_tokens_for_experts_matches_reference(self, n, E, blk_m,
+                                                       seed, empty):
+        rng = np.random.default_rng(seed)
+        x = rng.normal(size=(n, 12)).astype(np.float32)
+        full = [e for e in range(E) if e not in empty]
+        ids = rng.choice(full, size=n).astype(np.int32)
+        want = ref_kernels.sort_tokens_for_experts(x, ids, E, blk_m=blk_m)
+        got = kernels.sort_tokens_for_experts(torch.from_numpy(x),
+                                              torch.from_numpy(ids), E,
+                                              blk_m=blk_m)
+        assert [g.dtype for g in got] == [torch.float32, torch.int32,
+                                          torch.int64, torch.bool]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+        # NumPy operands too, as the reference's helper takes
+        for g, w in zip(kernels.sort_tokens_for_experts(x, ids, E, blk_m),
+                        want):
+            np.testing.assert_array_equal(g.numpy(), w)
+
+    def test_import_builds_nothing(self):
+        """Importing the package starts no compiler and loads no
+        library: a kernel is built at its first launch."""
+        code = (
+            "import subprocess\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError(f'started {a}')\n"
+            "subprocess.Popen = refuse\n"
+            "import repro_torch.kernels as k\n"
+            "from repro_torch.kernels import build\n"
+            "assert build.load.cache_info().currsize == 0\n"
+            "assert not build.load_wall_s\n"
+            "assert all(f.launches == 0 for f in (\n"
+            "    k.ops._flash_attention.flash_attention,\n"
+            "    k.ops._gp_fit.gp_lbfgs))\n"
+            "print('nothing built')\n")
+        proc = subprocess.run([sys.executable, "-c", code],
+                              capture_output=True, text=True, timeout=120,
+                              env={**os.environ, "PYTHONPATH": str(
+                                  Path(__file__).resolve().parent.parent
+                                  / "src")})
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.strip() == "nothing built"
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ card:
   ``ref.decode_attention_ref`` gives the mean of V there, a known
   difference; it is not used here).
 """
+import importlib
 import inspect
 
 import jax
@@ -38,9 +39,10 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from repro.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.kernels import decode_attention as kmod  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      decode_attention_split_ref)
+#: the kernels' modules (each wrapper of the package shadows its own)
+kmod = importlib.import_module("repro_torch.kernels.decode_attention")
 
 ATOL = 2e-6        # float32, the plain version's bar against Pallas
 H100_SMS = 132

@@ -21,6 +21,7 @@ a sharding context against one outside it and the explicit collectives.
 """
 import contextlib
 import copy
+import importlib
 import math
 
 import numpy as np
@@ -34,14 +35,10 @@ from repro_torch.core import EngineConfig
 from repro_torch.core.demeter import DemeterHyperParams
 from repro_torch.dsp import (FailuresAt, PeriodicFailures, ScenarioSpec,
                              SweepEngine, make_trace)
-from repro_torch.kernels import decode_attention as attn_mod
-from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_tick as kmod
-from repro_torch.kernels import grouped_matmul as gmm_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import rls_update as rls_mod
 from repro_torch.kernels import rmsnorm as rms_mod
-from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.dsp import ClusterModel
 from repro_torch.kernels.ref import (METRIC_KEYS, arima_chunk_ref,
                                      decode_attention_ref,
@@ -51,6 +48,11 @@ from repro_torch.kernels.ref import (METRIC_KEYS, arima_chunk_ref,
                                      rls_rank1_update_ref, ssd_scan_ref)
 from repro_torch.models import encode, init_params, train_loss
 from repro_torch.serving import Request, ServingEngine
+#: the kernels' modules (each wrapper of the package shadows its own)
+attn_mod = importlib.import_module("repro_torch.kernels.decode_attention")
+flash_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+gmm_mod = importlib.import_module("repro_torch.kernels.grouped_matmul")
+ssd_mod = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 LAM, THRESH, DT = 0.995, 3.0, 5.0
 
@@ -558,12 +560,16 @@ def _attention_operands(B, S, Hkv, G, D, dtype, device, seed=0):
                                          (3, 37, 2, 1, 64),
                                          (5, 300, 1, 4, 256),
                                          (4, 129, 3, 16, 128),
-                                         (2, 1000, 8, 2, 64)])
+                                         (2, 1000, 8, 2, 64),
+                                         (4, 96, 2, 2, 14),
+                                         (3, 200, 2, 4, 96)])
 def test_decode_attention_kernel_matches_plain_version(cuda, B, S, Hkv, G,
                                                        D, dtype, tol):
-    """Ragged lengths with 0, 1 and S_max; any S_max; groups 1 to 16. The
-    plain version rounds the softmax weights to bf16 before the weighted
-    sum and the kernel does not, hence the bf16 bar."""
+    """Ragged lengths with 0, 1 and S_max; any S_max; groups 1 to 16; head
+    dims between the kernel's (qwen2-7b's reduced config's 14, and 96),
+    zero-padded to the next. The plain version rounds the softmax weights
+    to bf16 before the weighted sum and the kernel does not, hence the bf16
+    bar."""
     q, k, v, lengths = _attention_operands(B, S, Hkv, G, D, dtype, cuda)
     before = attn_mod.decode_attention.launches
     got = ops.decode_attention(q, k, v, lengths)
@@ -591,10 +597,10 @@ def test_decode_attention_kernel_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         attn_mod.decode_attention(q, k.transpose(0, 1).contiguous()
                                   .transpose(0, 1), v, lengths)
-    with pytest.raises(ValueError, match="head dims"):
-        attn_mod.decode_attention(q[..., :96].contiguous(),
-                                  k[..., :96].contiguous(),
-                                  v[..., :96].contiguous(), lengths)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        wide = torch.zeros(4, 64, 2, 320, device=cuda)
+        attn_mod.decode_attention(wide[:, :1].repeat(1, 1, 4, 1), wide,
+                                  wide, lengths)
     with pytest.raises(ValueError, match="groups of 1 to 16"):
         wide = torch.zeros(4, 1, 34, 128, device=cuda)
         attn_mod.decode_attention(wide, k, v, lengths)
@@ -1175,9 +1181,11 @@ def test_moe_serving_on_card_matches_cpu(cuda, arch):
 def _kernel_launches() -> dict:
     """Every kernel wrapper's launch count (K1-K7 and the per-tick
     kernels)."""
-    from repro_torch.kernels import (decode_attention, flash_attention,
-                                     fused_tick, grouped_matmul, rls_update,
-                                     rmsnorm, ssd_scan)
+    from repro_torch.kernels import fused_tick, rls_update, rmsnorm
+    decode_attention, flash_attention, grouped_matmul, ssd_scan = (
+        importlib.import_module(f"repro_torch.kernels.{name}")
+        for name in ("decode_attention", "flash_attention", "grouped_matmul",
+                     "ssd_scan"))
     fns = (fused_tick.fused_tick, fused_tick.fused_interval,
            rls_update.rls_rank1_update, rls_update.arima_chunk,
            decode_attention.decode_attention, ssd_scan.ssd_scan,

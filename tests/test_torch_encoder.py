@@ -33,6 +33,7 @@ CPU) and the port (torch on the CPU):
 * the frontends' parameters carried across by ``interop``.
 """
 import dataclasses
+import importlib
 import math
 
 import jax
@@ -174,7 +175,8 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_is_built_from_source():
     any build), and its library is built from ``csrc/flash_attention.cu``
     into the checkout's build directory, with a typed C entry point."""
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as kmod
+    kmod = importlib.import_module(  # the wrapper shadows it
+        "repro_torch.kernels.flash_attention")
     q, k, v = (_t(a) for a in _qkv(1, 8, 2, 1, 16, seed=3))
     with pytest.raises(ValueError, match="CUDA device"):
         kmod.flash_attention(q, k, v, causal=True)
@@ -201,7 +203,8 @@ def test_kernel_design_by_dtype_and_head_dim(D, dtype, design, padded):
     CUDA cores: the wrapper's ``design`` names what the C entry point's
     dispatch launches."""
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as kmod
+    kmod = importlib.import_module(  # the wrapper shadows it
+        "repro_torch.kernels.flash_attention")
     assert kmod.design(D, dtype) == design
     assert kmod.padded_head_dim(D) == padded
     source = (build.CSRC_DIR / "flash_attention.cu").read_text()

@@ -7,7 +7,7 @@ CPU) and the port (torch on the CPU):
 * K6's plain version (``kernels/ref.py::grouped_matmul_ref``, through
   ``ops``) against the reference's Pallas ``grouped_matmul`` in interpret
   mode at ``TestGroupedMatmul``'s three shapes and its per-token routing
-  case, at 1e-5 of the output's scale in float32; this file's torch
+  case, at 1e-5 of the output's scale in float32; the package's
   ``sort_tokens_for_experts`` equal to the reference's, and the model
   path's statically sized sort (``sort_assignments``, tiles of -1 past the
   last group) giving every kept assignment its own product;
@@ -33,6 +33,7 @@ operation by operation (``jax.disable_jit``): compiled, its layers keep
 some bfloat16 intermediates in float32 (ROADMAP.md §3).
 """
 import dataclasses
+import importlib
 import math
 
 import jax
@@ -61,8 +62,7 @@ from repro.models import moe as ref_moe  # noqa: E402
 from repro_torch.interop import (_flatten, load_reference_params,  # noqa: E402
                                  model_config_from_dict,
                                  model_params_from_reference)
-from repro_torch.kernels import grouped_matmul as gmm_mod  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, sort_tokens_for_experts  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     BLOCK_MS, sort_assignments)
 from repro_torch.models import (decode_step, forward,  # noqa: E402
@@ -70,6 +70,8 @@ from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 train_loss)
 from repro_torch.models import mla, moe, transformer  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+#: the kernels' modules (each wrapper of the package shadows its own)
+gmm_mod = importlib.import_module("repro_torch.kernels.grouped_matmul")
 
 SLICE = ["deepseek_moe_16b", "deepseek_v2_lite_16b"]
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -126,40 +128,6 @@ def _cfgs(arch: str, impl: str = "kernel", **moe_overrides):
 # ---------------------------------------------------------------------------
 
 #: tests/test_kernels.py::TestGroupedMatmul's shapes (tokens, E, K, N)
-def sort_tokens_for_experts(x: torch.Tensor, expert_ids: torch.Tensor,
-                            n_experts: int, blk_m: int = 128):
-    """The reference's helper (``repro/kernels/grouped_matmul.py::
-    sort_tokens_for_experts``) in torch, for the tests (the model path
-    sorts with the port's static ``sort_assignments``): sort the rows
-    of ``x`` (N, K) by ``expert_ids`` (N,) (stably) and pad each expert's
-    group with zero rows to a multiple of ``blk_m``. Returns ``(lhs (M, K),
-    tile_expert (M / blk_m,) int32, inv (M,) int64: the source row of
-    each row or -1, valid (M,) bool)``, equal to the reference's. Sized to
-    the data: it reads the group sizes on the host."""
-    expert_ids = expert_ids.long()
-    dev = x.device
-    order = torch.sort(expert_ids, stable=True).indices
-    sizes = torch.bincount(expert_ids, minlength=n_experts)
-    padded = (sizes + blk_m - 1) // blk_m * blk_m
-    total = int(padded.sum()) or blk_m
-    offs = torch.cumsum(padded, 0) - padded
-    starts = torch.cumsum(sizes, 0) - sizes
-    sorted_e = expert_ids[order]
-    dst = offs[sorted_e] + torch.arange(len(order), device=dev) \
-        - starts[sorted_e]
-    lhs = x.new_zeros((total, x.shape[1]))
-    inv = torch.full((total,), -1, dtype=torch.int64, device=dev)
-    lhs[dst] = x[order]
-    inv[dst] = order
-    tile_expert = torch.repeat_interleave(
-        torch.arange(n_experts, device=dev), padded // blk_m
-    ).to(torch.int32)
-    if tile_expert.numel() == 0:
-        tile_expert = torch.zeros(total // blk_m, dtype=torch.int32,
-                                  device=dev)
-    return lhs, tile_expert, inv, inv >= 0
-
-
 GMM_SHAPES = [(300, 4, 128, 256), (1000, 8, 256, 128), (64, 2, 128, 128)]
 
 

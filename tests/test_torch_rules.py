@@ -1,14 +1,15 @@
 """The port's standing rules.
 
 * ``repro_torch`` imports neither ``jax`` nor ``repro``, at run time or in
-  its source text (nor does ``chip_smoke.py``);
+  its source text (nor do ``chip_smoke.py`` and the port's examples,
+  ``examples/*_torch.py``);
 * ``chip_smoke.py`` refuses to run without a CUDA device and prints no
   result, also from a directory holding nothing else of the repo;
 * the port keeps registries of its own: the reference's registries gain
   no entries from it;
-* every entry point that places tensors (the sweep stack's and the
-  serving stack's) defaults to the card and raises without one, instead of
-  running on the CPU unasked.
+* every entry point that places tensors (the sweep stack's, the serving
+  stack's and the examples' ``main``) defaults to the card and raises
+  without one, instead of running on the CPU unasked.
 """
 import re
 import shutil
@@ -21,6 +22,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
+#: the port's examples, beside the reference's
+EXAMPLES = sorted(p.relative_to(REPO).as_posix()
+                  for p in (REPO / "examples").glob("*_torch.py"))
 IMPORT_RE = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)")
 
 
@@ -50,9 +54,17 @@ def _env():
                                     "repro_torch.fleet.loadgen",
                                     "repro_torch.training",
                                     "repro_torch.distributed",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    *EXAMPLES])
 def test_port_imports_neither_jax_nor_reference(module):
-    code = (f"import sys, {module}\n"
+    """Each module, or each example file (loaded by path), imported in a
+    fresh interpreter leaves no ``jax`` or ``repro`` module loaded."""
+    load = (f"import {module}" if not module.endswith(".py") else
+            "import importlib.util\n"
+            f"spec = importlib.util.spec_from_file_location('ex', "
+            f"{str(REPO / module)!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))")
+    code = (f"import sys\n{load}\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n"
@@ -65,7 +77,8 @@ def test_port_imports_neither_jax_nor_reference(module):
 
 
 def test_no_jax_or_reference_import_lines():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] \
+        + [REPO / e for e in EXAMPLES]
     assert len(files) > 10
     hits = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
             for f in files
@@ -158,7 +171,15 @@ def _builders():
         finally:
             shutil.rmtree(d)
     train_cfg = cfg.scaled(attention_impl="reference")
+
+    def example(path):
+        import importlib.util
+        spec = importlib.util.spec_from_file_location("ex", REPO / path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return lambda: mod.main([])
     return {
+        **{e: example(e) for e in EXAMPLES},
         "ElasticTrainer": lambda: ElasticTrainer(
             train_cfg, TrainConfig(), DataConfig(1, 8),
             FTConfig(checkpoint_dir=ckpt_dir)),
@@ -211,7 +232,7 @@ def _builders():
      "launch.serve.run_engine", "FleetController", "FleetAPI", "run_soak",
      "python -m repro_torch.fleet", "python -m repro_torch.fleet.loadgen",
      "ElasticTrainer", "CheckpointManager.restore",
-     "python -m repro_torch.launch.train"]))
+     "python -m repro_torch.launch.train", *EXAMPLES]))
 def test_entry_points_default_to_the_card(entry):
     import torch
     if torch.cuda.is_available():

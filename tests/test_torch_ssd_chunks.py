@@ -23,6 +23,7 @@ card:
   for bfloat16 at P = 64 and N = 32, 64 or 128, the CUDA-core one
   otherwise.
 """
+import importlib
 import math
 
 import jax
@@ -42,9 +43,10 @@ import torch  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan  # noqa: E402
 from repro.models import mamba2 as ref_mamba2  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels import ssd_scan as kmod  # noqa: E402
 from repro_torch.kernels.ref import (ssd_scan_chunked_ref,  # noqa: E402
                                      ssd_scan_ref)
+#: the kernels' modules (each wrapper of the package shadows its own)
+kmod = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 TOL = 5e-5         # float32: the reference's bar, atol and rtol
 #: (B, S, H, P, G, N, chunk): tests/test_torch_ssm.py's SSD shapes, a
