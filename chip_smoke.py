@@ -47,11 +47,14 @@ Phases, each of which exits non-zero on failure:
    tests' shapes and 16 x 4096 rows of 2048 beside ``F.rms_norm``; 1e-5 in
    float32, one bf16 ulp of each element in bf16), and ``gp_lbfgs`` (the
    GP bank's whole fit, a CTA a row; not a TPU kernel: the reference's fit
-   is plain JAX) at phase 5's 96 members (n_max 64, the factors in shared
-   memory) and at 8 members of 129-256 points (n_max 256, in global
-   scratch) against its plain version, the batched L-BFGS over the
-   autograd objective (iterates after 1 and 2 iterations within 1e-3 of
-   theta's scale, best objectives after 60 within 1e-3 relative);
+   is plain JAX) at ``GP_FIT_SHAPES`` on its tiled body (phase 5's 96
+   members at n_max 64, 3 members at n_max 32, 96 members at n_max 32 and
+   16, and the Demeter path's most common launch, 1 member at n_max 8; each
+   row with its time an evaluation, design, registers and spills) and at 8 members of 129-256
+   points (n_max 256, the general body, in global scratch) against its
+   plain version, the batched L-BFGS over the autograd objective (iterates
+   after 1 and 2 iterations within 1e-3 of theta's scale, best objectives
+   after 60 within 1e-3 relative);
 4. baseline path: ``SweepEngine``/``run_sweep`` over a baseline-controller
    grid (traces ysb and tsw x static/reactive/ds2 x seeds 0-47 = 288
    scenarios, the paper's 18 h at dt = 5 s, a failure every 45 minutes) on
@@ -74,8 +77,9 @@ Phases, each of which exits non-zero on failure:
    acquisition, all on the card); finite results, a failure in every
    scenario, GP fits made, K1 (``arima_chunk``) launched once per ARIMA
    chunk replayed, K2 (``fused_interval``) once per ``step_interval``
-   call, ``gp_lbfgs`` once per GP bank fit (and the largest padded
-   training size it fitted), and the per-tick kernels never;
+   call, ``gp_lbfgs`` once per GP bank fit (with the largest padded
+   training size it fitted, the fits by rows and padded size and the
+   kernel's device time), and the per-tick kernels never;
 7. the Demeter path, card against CPU: a 3-scenario, 2 h grid with the
    scalar GP fits, run on ``cuda`` and on ``cpu``; every scenario must agree
    at rtol 1e-9 with equal reconfiguration, fit and forecast-update counts;
@@ -149,7 +153,8 @@ Phases, each of which exits non-zero on failure:
     s, a failure every 45 minutes, seed 0) under ``EngineConfig()``;
     finite results, one failure record per failure, profiling cost for
     Demeter only, Demeter's K1 launches equal to its forecast bank's ARIMA
-    chunks; a Table-3 row each;
+    chunks, ``gp_lbfgs``'s to its GP bank fits (printed by rows and padded
+    size); a Table-3 row each;
 25. card against CPU: ``run_experiment`` of the four methods on ysb (2 h,
     seed 3, scalar GP fits) on ``cuda`` and ``cpu`` (arrays at rtol 1e-9,
     equal reconfigurations and failure records); phase 7's grid with the
@@ -173,7 +178,8 @@ Phases, each of which exits non-zero on failure:
     per forecast-bank flush and once per detector sample; the 64-job x
     30-epoch profiling soak (seed 7) card against CPU under the scalar GP
     fits, then on the card with the bank fits and obs on, timed, with the
-    scalar fits' decisions; ``python -m
+    scalar fits' decisions and ``gp_lbfgs`` launched once per GP bank fit
+    (printed by rows and padded size); ``python -m
     repro_torch.fleet --device cuda`` fed a JSON-lines script with a
     ``"serving"`` job on phase 10's measured profile, answering as an
     in-process CPU service does;
@@ -239,7 +245,10 @@ Phases, each of which exits non-zero on failure:
     Card against CPU: quickstart's and dsp_repro's lines equal (dsp_repro's
     arrays at rtol 1e-9, its profiling cost at 2e-9), dsp_sweep's lines
     equal but the walls, serve_autoscale's phase-1 tokens equal (float32,
-    TF32 off). Rehearse with ``examples_phase(("cpu", "cpu"))``.
+    TF32 off). quickstart's and dsp_repro's card runs print how near
+    their Demeter picks came to another choice (``pick_margins``: a float32
+    near-tie that a fit kernel's rounding could flip card vs CPU). Rehearse
+    with ``examples_phase(("cpu", "cpu"))``.
 
 The last four lines of standard output are the ``{"examples": {...}}``
 line (each example's card wall, launches and agreement), the
@@ -349,6 +358,16 @@ DEMETER_SEEDS = 4
 #: Phase 3's second GP-fit row: 8 members of 129-256 points (n_max 256),
 #: where the fit kernel keeps its n x n factors in global scratch
 GP_FIT_LARGE = (8, 5, (129, 257))
+#: Phase 3's GP-fit rows at the tiled body's sizes (d = 5, 2 restarts,
+#: ``gp_datasets`` as phase 5 builds them): (label, members, seed, sizes).
+#: The first is the kernels line's row. Phase 6 counts the Demeter path's
+#: launches by rows x n_max: on an H100 at 4 seeds, 254 of 361 were 2 rows
+#: (one member's restarts) at n_max 8, 40 were 2 x 16, none above n_max 32.
+GP_FIT_SHAPES = (("96 members at n_max 64", 96, 12, (3, 61)),
+                 ("3 members at n_max 32", 3, 12, (17, 33)),
+                 ("96 members at n_max 32", 96, 12, (3, 33)),
+                 ("96 members at n_max 16", 96, 12, (3, 17)),
+                 ("1 member at n_max 8", 1, 12, (3, 9)))
 #: Phase 5: the members of ``gp_datasets(96, 12)`` on which the bank's
 #: optimizer (optax's L-BFGS, the reference's) stops at another optimum
 #: than the scalar fit's scipy L-BFGS-B, so that the reference's own bank
@@ -1539,21 +1558,126 @@ def gp_datasets(n_sets: int, seed: int, sizes=(3, 61)):
 
 class count_fit_calls:
     """Counts the GP bank's batched fits (``gp_bank._fit_packed`` calls),
-    and the largest padded training size among them, until
-    ``restore()``."""
+    the largest padded training size among them and the fits by ``"rows x
+    n_max"`` (``by_shape``: a fit is one ``gp_lbfgs`` launch of (member,
+    restart) rows at that padded size on the card), until ``restore()``.
+    CUDA events around each ``ops.gp_lbfgs`` call on the card (no host
+    sync) give the fit kernel's device time, ``kernel_ms()``."""
 
     def __init__(self, gp_bank):
+        from repro_torch.kernels import ops
         self.mod, self.fn, self.n = gp_bank, gp_bank._fit_packed, 0
-        self.n_max = 0
+        self.n_max, self.by_shape = 0, {}
+        self.ops, self.ops_fn, self.events = ops, ops.gp_lbfgs, []
 
-        def counted(x, *a, **k):
+        def timed(x, *a, **k):
+            if x.device.type != "cuda":
+                return self.ops_fn(x, *a, **k)
+            import torch
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = self.ops_fn(x, *a, **k)
+            end.record()
+            self.events.append((start, end))
+            return out
+        ops.gp_lbfgs = timed
+
+        def counted(x, y, mask, t0s, *a, **k):
             self.n += 1
             self.n_max = max(self.n_max, x.shape[1])
-            return self.fn(x, *a, **k)
+            key = f"{t0s.shape[0] * t0s.shape[1]}x{x.shape[1]}"
+            self.by_shape[key] = self.by_shape.get(key, 0) + 1
+            return self.fn(x, y, mask, t0s, *a, **k)
         gp_bank._fit_packed = counted
 
     def restore(self):
         self.mod._fit_packed = self.fn
+        self.ops.gp_lbfgs = self.ops_fn
+
+    def kernel_ms(self) -> float:
+        """The summed device time of the timed fit launches, in ms."""
+        for _, end in self.events[-1:]:
+            end.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+class pick_margins:
+    """How near the Demeter controller's picks came to another choice,
+    until ``restore()``. At every ``_pick_config`` with a posterior it
+    reads the predictions the pick itself asks for (no extra fit, no extra
+    launch) and keeps the smallest, over the picks, of: a candidate's
+    predicted latency from the latency constraint (``latency``), its
+    predicted recovery time from the recovery constraint (``recovery``),
+    each relative to the constraint (a candidate there leaves or joins the
+    feasible set), and the picked candidate's predicted usage from its
+    neighbours' in the feasible order, relative to its own (``usage``: a
+    swap moves the safety buffer's pick). A kernel change whose float32
+    rounding flips a card-vs-CPU decision shows here as a small margin."""
+
+    def __init__(self):
+        import numpy as np
+        from repro_torch.core import demeter
+        self.cls, self.fn = demeter.DemeterController, \
+            demeter.DemeterController._pick_config
+        self.picks = 0
+        self.margin = {"latency": np.inf, "recovery": np.inf,
+                       "usage": np.inf}
+
+        def pick(ctl, segment):
+            seen, posteriors = {}, ctl._posteriors
+
+            def watched(seg, metric):
+                post = posteriors(seg, metric)
+                if post is None:
+                    return None
+
+                def read(xq):
+                    out = post(xq)
+                    seen[metric] = np.asarray(out[0], dtype=np.float64)
+                    return out
+                return read
+            ctl._posteriors = watched
+            try:
+                return self.fn(ctl, segment)
+            finally:
+                del ctl._posteriors
+                self.note(ctl, seen, demeter)
+        self.cls._pick_config = pick
+
+    def note(self, ctl, seen, demeter):
+        import numpy as np
+        lc = ctl.lc.constraint()
+        mu_u, mu_l = seen.get(demeter.USAGE), seen.get(demeter.LATENCY)
+        if lc is None or mu_u is None or mu_l is None:
+            return
+        self.picks += 1
+        m = self.margin
+        m["latency"] = min(m["latency"],
+                           float(np.abs(mu_l - lc).min()) / abs(lc))
+        feasible = mu_l < lc
+        rmu = seen.get(demeter.RECOVERY)
+        if rmu is not None:
+            rc = ctl.hp.recovery_constraint_s
+            m["recovery"] = min(m["recovery"],
+                                float(np.abs(rmu - rc).min()) / rc)
+            feasible &= rmu <= rc
+        u = np.sort(mu_u[feasible])
+        if len(u) > 1:
+            k = min(int(np.floor(ctl.hp.safety_buffer * len(u))), len(u) - 1)
+            gap = min(u[k] - u[k - 1] if k > 0 else np.inf,
+                      u[k + 1] - u[k] if k + 1 < len(u) else np.inf)
+            m["usage"] = min(m["usage"], float(gap) / max(abs(u[k]), 1e-12))
+
+    def summary(self) -> dict:
+        """The picks seen and each smallest relative margin (None where no
+        pick had that decision)."""
+        return {"picks": self.picks,
+                **{k: (v if v != float("inf") else None)
+                   for k, v in self.margin.items()}}
+
+    def restore(self):
+        self.cls._pick_config = self.fn
 
 
 def fit_operands(datasets, seeds, device):
@@ -1600,6 +1724,7 @@ def check_gp_fit(n_sets: int = 96, seed: int = 12, sizes=(3, 61),
     import torch
     from repro_torch.core.demeter import FIT_MAX_ITER
     from repro_torch.core.gp import neg_mll_and_grad
+    from repro_torch.kernels import build
     from repro_torch.kernels.gp_fit import gp_lbfgs
     from repro_torch.kernels.ref import gp_lbfgs_ref
     datasets, seeds = gp_datasets(n_sets, seed, sizes)
@@ -1627,6 +1752,10 @@ def check_gp_fit(n_sets: int = 96, seed: int = 12, sizes=(3, 61),
     plain_ms = (time.perf_counter() - t_plain) * 1e3
     theta, counts, evals = gp_lbfgs(x, y, mask, t0, restarts=R,
                                     max_iter=FIT_MAX_ITER)
+    # the body the C entry point launches at this size
+    tile = build.load("gp_fit").gp_lbfgs_body(x.shape[1])
+    body, fn = ((f"tiled-{tile}", f"gp_tile_kernel<{tile}>") if tile else
+                ("general", "gp_lbfgs_kernel"))
     ms = (device_ms(lambda: gp_lbfgs(x, y, mask, t0, restarts=R,
                                      max_iter=FIT_MAX_ITER), n=5, warmup=1,
                     host_n=5) if timed and device == "cuda" else None)
@@ -1645,12 +1774,14 @@ def check_gp_fit(n_sets: int = 96, seed: int = 12, sizes=(3, 61),
         n_real)))
     n_bytes = sum(t.numel() * 4 for t in (x, y, mask, t0, theta)) \
         + 8 * B * R
+    per_row = float(evals.float().mean())
     out = {"members": B, "restarts": R, "n_max": x.shape[1],
-           "iterations": int(counts.max()), "evals_per_row": float(
-               evals.float().mean()), "max_abs_err": worst_abs,
+           "iterations": int(counts.max()), "evals_per_row": per_row,
+           "evals_max": int(evals.max()), "max_abs_err": worst_abs,
            "early_iterate_rel_err": worst_early, "objective_rel_err": rel,
-           "ms": ms, "plain_ms": plain_ms,
-           **bound(n_bytes, ops, FP32_OPS_PER_S), "library_ms": None}
+           "ms": ms, "us_per_eval": None if ms is None else ms * 1e3 / per_row,
+           "plain_ms": plain_ms, **bound(n_bytes, ops, FP32_OPS_PER_S),
+           "library_ms": None, "design": body, "ptxas": ptxas_of(fn)}
     return out
 
 
@@ -1869,6 +2000,8 @@ def demeter_main_path(n_seeds: int, device: str = "cuda") -> dict:
            "arima_ticks": eng.forecast_bank.arima_ticks,
            "arima_chunks": chunks, "intervals": intervals,
            "gp_bank_fits": fit_calls.n, "gp_fit_n_max": fit_calls.n_max,
+           "gp_fits_by_rows_x_n_max": fit_calls.by_shape,
+           "gp_lbfgs_device_s": fit_calls.kernel_ms() * 1e-3,
            "launches": launches, "layer_wall_s": timers.wall,
            "layer_calls": timers.calls}
     print("demeter main path " + json.dumps(out), flush=True)
@@ -2141,49 +2274,74 @@ def paper_protocol(device: str = "cuda", duration_s: float = 18 * 3600.0
     """Phase 24: ``run_experiment`` for every method on ysb and tsw at the
     paper's 18 h (dt = 5 s, a failure every 45 minutes, seed 0) under
     ``EngineConfig(device=device)``."""
-    import numpy as np
-    from repro_torch.core import EngineConfig
+    from repro_torch.core import gp_bank
     from repro_torch.dsp import (FAILURE_INTERVAL_S, PeriodicFailures,
-                                 run_experiment, tsw_like, ysb_like)
-    from repro_torch.kernels import rls_update as k1
+                                 tsw_like, ysb_like)
+    from repro_torch.kernels import gp_fit as kgp
     schedule = PeriodicFailures(FAILURE_INTERVAL_S)
     n_fail = len(schedule.times(duration_s))
     rows, launches = [], {}
-    for make in (ysb_like, tsw_like):
-        trace = make(duration_s=duration_s, dt_s=5.0)
-        for method in PAPER_METHODS:
-            k1.arima_chunk.launches = k1.rls_rank1_update.launches = 0
-            t0 = time.perf_counter()
-            with Recorder() as made:
-                res = run_experiment(trace, method, seed=0,
-                                     failures_schedule=schedule,
-                                     config=EngineConfig(device=device))
-            wall = time.perf_counter() - t0
-            name = f"{trace.name}/{method}"
-            for f in ("latencies", "rates", "usage_cpu", "usage_mem_mb",
-                      "workers"):
-                a = getattr(res, f)
-                if a.shape != (int(duration_s / 5.0),) \
-                        or not np.isfinite(a).all():
-                    fail(f"run_experiment {name}: {f} is not finite")
-            if len(res.failures) != n_fail:
-                fail(f"run_experiment {name}: {len(res.failures)} failure "
-                     f"records for {n_fail} failures")
-            if (res.profile_cpu_s > 0) != (method == "demeter"):
-                fail(f"run_experiment {name}: profiling cost "
-                     f"{res.profile_cpu_s}")
-            if method == "demeter":
-                chunks = made.made[0].tsf.bank.arima_chunks
-                n = k1.arima_chunk.launches
-                if device == "cuda" and not (
-                        n == chunks > 0 and k1.rls_rank1_update.launches == 0):
-                    fail(f"run_experiment {name}: {n} arima_chunk launches "
-                         f"for {chunks} ARIMA chunks")
-                launches[trace.name] = n
-            row = table3_row(res, wall)
-            rows.append(row)
-            print("table3 " + json.dumps(row), flush=True)
-    return {"rows": rows, "arima_chunk_launches": launches}
+    fits = count_fit_calls(gp_bank)
+    kgp.gp_lbfgs.launches = 0
+    try:
+        for make in (ysb_like, tsw_like):
+            rows += protocol_cells(make, duration_s, schedule, n_fail,
+                                   device, launches)
+    finally:
+        fits.restore()
+    if device == "cuda" and not kgp.gp_lbfgs.launches == fits.n > 0:
+        fail(f"run_experiment: gp_lbfgs launched {kgp.gp_lbfgs.launches} "
+             f"times for {fits.n} GP bank fits")
+    print(f"run_experiment gp_lbfgs launches {kgp.gp_lbfgs.launches}, "
+          f"fits by rows x n_max {fits.by_shape}", flush=True)
+    return {"rows": rows, "arima_chunk_launches": launches,
+            "gp_lbfgs_launches": kgp.gp_lbfgs.launches,
+            "gp_fits_by_rows_x_n_max": fits.by_shape}
+
+
+def protocol_cells(make, duration_s: float, schedule, n_fail: int,
+                   device: str, launches: dict) -> list:
+    """Phase 24's four cells on one trace; each Demeter cell's K1 launches
+    go into ``launches`` under the trace's name."""
+    import numpy as np
+    from repro_torch.core import EngineConfig
+    from repro_torch.dsp import run_experiment
+    from repro_torch.kernels import rls_update as k1
+    rows = []
+    trace = make(duration_s=duration_s, dt_s=5.0)
+    for method in PAPER_METHODS:
+        k1.arima_chunk.launches = k1.rls_rank1_update.launches = 0
+        t0 = time.perf_counter()
+        with Recorder() as made:
+            res = run_experiment(trace, method, seed=0,
+                                 failures_schedule=schedule,
+                                 config=EngineConfig(device=device))
+        wall = time.perf_counter() - t0
+        name = f"{trace.name}/{method}"
+        for f in ("latencies", "rates", "usage_cpu", "usage_mem_mb",
+                  "workers"):
+            a = getattr(res, f)
+            if a.shape != (int(duration_s / 5.0),) \
+                    or not np.isfinite(a).all():
+                fail(f"run_experiment {name}: {f} is not finite")
+        if len(res.failures) != n_fail:
+            fail(f"run_experiment {name}: {len(res.failures)} failure "
+                 f"records for {n_fail} failures")
+        if (res.profile_cpu_s > 0) != (method == "demeter"):
+            fail(f"run_experiment {name}: profiling cost "
+                 f"{res.profile_cpu_s}")
+        if method == "demeter":
+            chunks = made.made[0].tsf.bank.arima_chunks
+            n = k1.arima_chunk.launches
+            if device == "cuda" and not (
+                    n == chunks > 0 and k1.rls_rank1_update.launches == 0):
+                fail(f"run_experiment {name}: {n} arima_chunk launches "
+                     f"for {chunks} ARIMA chunks")
+            launches[trace.name] = n
+        row = table3_row(res, wall)
+        rows.append(row)
+        print("table3 " + json.dumps(row), flush=True)
+    return rows
 
 
 def paper_protocol_card_vs_cpu(grid_results, devices=("cuda", "cpu")) -> dict:
@@ -2544,8 +2702,9 @@ def fleet_phase(decode_step_s: float, prefill_s: float,
     JSON-lines service on the card (``device``; the CPU legs stay on the
     CPU)."""
     from repro_torch import obs
-    from repro_torch.core import EngineConfig
+    from repro_torch.core import EngineConfig, gp_bank
     from repro_torch.fleet import SoakConfig, run_soak
+    from repro_torch.kernels import gp_fit as kgp
     from repro_torch.kernels import rls_update as k1
     main = SoakConfig(**SOAK_MAIN)
     runs, launches = {}, {}
@@ -2597,10 +2756,18 @@ def fleet_phase(decode_step_s: float, prefill_s: float,
     # decisions as the scalar fits (as on the CPU)
     obs.reset()
     obs.enable()
+    fits = count_fit_calls(gp_bank)
+    kgp.gp_lbfgs.launches = 0
     try:
         bank = run_soak(prof, EngineConfig(device=device))
     finally:
         obs.disable()
+        fits.restore()
+    if device == "cuda" and not kgp.gp_lbfgs.launches == fits.n > 0:
+        fail(f"profiling soak: gp_lbfgs launched {kgp.gp_lbfgs.launches} "
+             f"times for {fits.n} GP bank fits")
+    print(f"profiling soak gp_lbfgs launches {kgp.gp_lbfgs.launches}, fits "
+          f"by rows x n_max {fits.by_shape}", flush=True)
     prof_walls = span_walls(obs.tracer(), FLEET_SPANS)
     gp_fits = obs.snapshot()["counters"].get("sweep.gp_fits", 0)
     obs.reset()
@@ -2631,6 +2798,8 @@ def fleet_phase(decode_step_s: float, prefill_s: float,
                                       "cpu": on_cpu["wall_s"]},
                "bank_fits_obs_on_wall_s": bank["wall_s"],
                "decisions": bank["decisions"], "gp_fits": gp_fits,
+               "gp_lbfgs_launches": kgp.gp_lbfgs.launches,
+               "gp_fits_by_rows_x_n_max": fits.by_shape,
                "stats": bank["stats"], "span_walls": prof_walls},
            "service_wall_s": service["wall_s"]}
     print("fleet " + json.dumps(out), flush=True)
@@ -4123,11 +4292,12 @@ def example_quickstart(devices=("cuda", "cpu")) -> dict:
     forecast bank and ``gp_lbfgs`` once per GP bank fit; then on the CPU:
     the same lines (profiling, reconfigurations, final state)."""
     from repro_torch.core import gp_bank
-    fits = count_fit_calls(gp_bank)
+    fits, margins = count_fit_calls(gp_bank), pick_margins()
     try:
         card = run_example("quickstart", devices[0])
     finally:
         fits.restore()
+        margins.restore()
     got = launched(card["launches"], ("arima_chunk", "gp_lbfgs"),
                    "quickstart", devices[0])
     chunks = card["out"].tsf.bank.arima_chunks
@@ -4142,6 +4312,7 @@ def example_quickstart(devices=("cuda", "cpu")) -> dict:
     return {"wall_s": card["wall_s"], "launches": got,
             "reconfigurations": card["out"].n_reconfigurations,
             "agreement": "lines equal card vs CPU",
+            "pick_margins": margins.summary(),
             "cpu_wall_s": cpu["wall_s"]}
 
 
@@ -4151,7 +4322,11 @@ def example_dsp_repro(devices=("cuda", "cpu")) -> dict:
     records, the arrays at rtol 1e-9 and the profiling cost at 2e-9 (the
     forecast bank's float64 RLS on raw rates, ROADMAP.md §3)."""
     import numpy as np
-    card = run_example("dsp_repro", devices[0])
+    margins = pick_margins()
+    try:
+        card = run_example("dsp_repro", devices[0])
+    finally:
+        margins.restore()
     got = launched(card["launches"], ("arima_chunk", "gp_lbfgs"),
                    "dsp_repro", devices[0])
     cpu = run_example("dsp_repro", devices[1])
@@ -4181,6 +4356,7 @@ def example_dsp_repro(devices=("cuda", "cpu")) -> dict:
     return {"wall_s": card["wall_s"], "launches": got,
             "agreement": f"lines equal; arrays at rtol 1e-9; profiling cost "
                          f"within {worst:.3g} relative (bar 2e-9)",
+            "pick_margins": margins.summary(),
             "cpu_wall_s": cpu["wall_s"]}
 
 
@@ -4505,10 +4681,14 @@ def main() -> int:
         rms_rows[str(dtype).split(".")[-1]] = r = check_fused_rmsnorm(
             RMSNORM_MAIN, dtype, timed=True)
         print("kernel fused_rmsnorm " + json.dumps(r), flush=True)
-    # the GP bank's fit at phase 5's 96 members (n_max 64: the factors in
-    # shared memory), and above SHARED_N points (in the global scratch)
-    gp_fit = check_gp_fit()
-    print("kernel gp_lbfgs " + json.dumps(gp_fit), flush=True)
+    # the GP bank's fit on the tiled body (GP_FIT_SHAPES), and above
+    # SHARED_N points (the general body, in the global scratch)
+    gp_rows = {}
+    for label, n_sets, seed, sizes in GP_FIT_SHAPES:
+        gp_rows[label] = r = {"shape": label, **check_gp_fit(n_sets, seed,
+                                                             sizes)}
+        print("kernel gp_lbfgs " + json.dumps(r), flush=True)
+    gp_fit = gp_rows[GP_FIT_SHAPES[0][0]]
     gp_fit_large = check_gp_fit(*GP_FIT_LARGE, timed=False)
     print("kernel gp_lbfgs " + json.dumps(gp_fit_large), flush=True)
     print(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
@@ -4830,11 +5010,28 @@ def main() -> int:
         # a lax.while_loop), which this one launch replaces
         "replaces": "src/repro/core/gp_bank.py:112",
         "launches": main_path["launches"]["gp_lbfgs"],
-        "max_abs_err": max(gp_fit["max_abs_err"],
-                           gp_fit_large["max_abs_err"]),
+        "design": gp_fit["design"],
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           (*gp_rows.values(), gp_fit_large)),
         "ms": gp_fit["ms"], "plain_ms": gp_fit["plain_ms"],
         "bound_ms": gp_fit["bound_ms"], "bound_by": gp_fit["bound_by"],
         "library_ms": None,
+        # each of phase 3's tiled rows (the first gives the times above)
+        "shapes": {label: {k: r[k] for k in (
+            "members", "n_max", "design", "ms", "us_per_eval", "plain_ms",
+            "bound_ms", "bound_by")} for label, r in gp_rows.items()},
+        # the fits by (rows, padded size) on each path that fits GPs
+        "paths": {
+            "demeter": {"launches": main_path["launches"]["gp_lbfgs"],
+                        "by_rows_x_n_max":
+                            main_path["gp_fits_by_rows_x_n_max"]},
+            "run_experiment": {
+                "launches": protocol["gp_lbfgs_launches"],
+                "by_rows_x_n_max": protocol["gp_fits_by_rows_x_n_max"]},
+            "fleet profiling soak": {
+                "launches": fleet["profiling_soak"]["gp_lbfgs_launches"],
+                "by_rows_x_n_max":
+                    fleet["profiling_soak"]["gp_fits_by_rows_x_n_max"]}},
     }, {
         "name": "fused_rmsnorm", "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",

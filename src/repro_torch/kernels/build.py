@@ -62,6 +62,7 @@ SIGNATURES = {
     },
     "gp_fit": {
         "gp_lbfgs_launch": [_C] * 8 + [_I64] + [_I] * 4 + [_C],
+        "gp_lbfgs_body": [_I],
     },
 }
 

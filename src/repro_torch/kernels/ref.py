@@ -520,3 +520,75 @@ def gp_lbfgs_ref(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
             return neg_mll_and_grad(theta, xr, yr, mr)
         return neg_mll_and_grad(theta, xr[rows], yr[rows], mr[rows])
     return lbfgs_batched(fun, t0, max_iter=max_iter)
+
+
+def gp_objective_sweep_ref(theta: torch.Tensor, x: torch.Tensor,
+                           y: torch.Tensor, mask: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fit kernel's tiled objective in plain torch: the GP objective of
+    :func:`repro_torch.core.gp.neg_mll_and_grad` and its gradient, computed
+    as ``csrc/gp_fit.cu``'s tiled body computes them: d2 summed over the
+    scaled differences (not as the plain version's ``|z_i|^2 + |z_c|^2 -
+    2 z_i.z_c``); K^-1, the log-determinant and the positive-definite test
+    come from one symmetric sweep (Dempster's sweep operator: after the
+    steps 0..j the swept block holds -K^-1) over the rows up to the last
+    real one, the masked rows past it starting swept (diagonal -1); the
+    gradient is 0.5 tr((K^-1 - alpha
+    alpha^T) dK/dtheta) in closed form, plus the priors'. theta ``(B, d +
+    2)``, x ``(B, n, d)``, y and mask ``(B, n)``, float32. Returns the values
+    ``(B,)`` and gradients ``(B, d + 2)``, NaN on a row whose sweep meets a
+    pivot that is not positive (or NaN)."""
+    B, n, dim = x.shape
+    ls, sig, noise = (theta[:, :dim].exp(), theta[:, dim].exp(),
+                      theta[:, dim + 1].exp())
+    z = x / ls[:, None, :]
+    dz2 = (z[:, :, None, :] - z[:, None, :, :]) ** 2
+    d2 = dz2.sum(-1)
+    s5r = math.sqrt(5.0) * torch.sqrt(torch.clamp(d2, min=1e-12))
+    e = torch.exp(-s5r)
+    km = sig[:, None, None] * (1.0 + s5r + 5.0 * d2 / 3.0) * e
+    dk = torch.where(d2 > 1e-12, -(5.0 / 6.0) * sig[:, None, None] * e
+                     * (1.0 + s5r), (5.0 / 3.0) * sig[:, None, None] * e)
+    real = mask > 0
+    pair = real[:, :, None] & real[:, None, :]
+    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    idx = torch.arange(n, device=x.device)
+    n_sweep = torch.where(real, idx, -1).max(1).values + 1
+    diag0 = torch.where(idx[None, :] < n_sweep[:, None], 1.0, -1.0)
+    a = torch.where(pair, km + torch.where(eye, noise[:, None, None] + 1e-6,
+                                           0.0), 0.0)
+    a = torch.where(pair | ~eye, a, torch.diag_embed(diag0))
+    logdet = torch.zeros(B, dtype=x.dtype, device=x.device)
+    ok = torch.ones(B, dtype=torch.bool, device=x.device)
+    for j in range(n):
+        piv = a[:, j, j]
+        step = ok & (j < n_sweep)
+        ok = ok & ~(step & ~(piv > 0))
+        step = step & ok
+        inv = 1.0 / piv
+        c = a[:, :, j]
+        u = c * inv[:, None]
+        swept = a - c[:, :, None] * u[:, None, :]
+        swept[:, j, :] = u
+        swept[:, :, j] = u
+        swept[:, j, j] = -inv
+        a = torch.where(step[:, None, None], swept, a)
+        logdet = logdet + torch.where(
+            step, torch.log(torch.sqrt(piv)) * mask[:, j], 0.0)
+    kinv = -a
+    alpha = (kinv @ y[:, :, None])[:, :, 0]
+    w = torch.where(pair, kinv - alpha[:, :, None] * alpha[:, None, :], 0.0)
+    tr_ls = ((w * dk)[..., None] * (-2.0 * dz2)).sum((1, 2))
+    tr_sig = (w * km).sum((1, 2))
+    tr_noise = torch.where(eye, w, 0.0).sum((1, 2)) * noise
+    mll = -0.5 * (y * alpha).sum(1) - logdet \
+        - 0.5 * mask.sum(1) * math.log(2.0 * math.pi)
+    t_ls, t_sig, t_noise = theta[:, :dim], theta[:, dim], theta[:, dim + 1]
+    prior = (((t_ls - math.log(0.5)) ** 2).sum(1) / 8.0 + t_sig ** 2 / 8.0
+             + (t_noise - math.log(1e-2)) ** 2 / 18.0)
+    grad = torch.cat([0.5 * tr_ls + 2.0 * (t_ls - math.log(0.5)) / 8.0,
+                      (0.5 * tr_sig + 2.0 * t_sig / 8.0)[:, None],
+                      (0.5 * tr_noise + 2.0 * (t_noise - math.log(1e-2))
+                       / 18.0)[:, None]], 1)
+    value = torch.where(ok, -(mll - prior), torch.nan)
+    return value, torch.where(ok[:, None], grad, torch.nan)

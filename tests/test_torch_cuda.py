@@ -1264,27 +1264,43 @@ def test_checkpoint_saved_on_card_restores_on_cpu(cuda, tmp_path):
     assert int(back["step"]) == 4
 
 
-@pytest.mark.cuda
-def test_gp_fit_kernel_matches_plain_version(cuda):
-    """The GP bank's fit kernel against its plain version
-    (``kernels.ref.gp_lbfgs_ref``: the batched L-BFGS over the autograd
-    objective) on the card: the first two
-    iterates within 1e-3 of theta's scale, and the members' best
-    objectives after the full fit within 1e-3 relative."""
-    from repro_torch.core.gp import neg_mll_and_grad, restart_inits
-    from repro_torch.kernels.gp_fit import gp_lbfgs
-    from repro_torch.kernels.ref import gp_lbfgs_ref
-    rng = np.random.default_rng(5)
-    B, n, d, R = 6, 16, 5, 2
+def _gp_fit_operands(n, seed, device):
+    """Six members of n points, d = 5, two restarts each: the even members
+    keep their first 11/16 of the points (masked rows past the last real
+    one), member 1 loses one row a quarter in (a masked row inside the
+    sweep); targets zero on the masked rows."""
+    from repro_torch.core.gp import restart_inits
+    rng = np.random.default_rng(seed)
+    B, d, R = 6, 5, 2
     x = rng.uniform(0, 1, (B, n, d))
     y = rng.normal(0, 1, (B, n))
     mask = np.ones((B, n))
-    mask[::2, 11:] = 0.0
+    mask[::2, (11 * n) // 16:] = 0.0
+    mask[1, n // 4] = 0.0
     y *= mask
     t0 = np.concatenate([restart_inits(d, R, 7 * i) for i in range(B)])
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
-                                    device="cuda")
-    x, y, mask, t0 = f32(x), f32(y), f32(mask), f32(t0)
+                                    device=device)
+    return f32(x), f32(y), f32(mask), f32(t0), R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_gp_fit_kernel_matches_plain_version(cuda, n):
+    """The GP bank's fit kernel against its plain version
+    (``kernels.ref.gp_lbfgs_ref``: the batched L-BFGS over the autograd
+    objective) on the card, at each padded size of the tiled body with
+    masked rows (``gp_lbfgs_body`` picks the tiled body of that size): the
+    first two
+    iterates within 1e-3 of theta's scale, and the members' best
+    objectives after the full fit within 1e-3 relative."""
+    from repro_torch.core.gp import neg_mll_and_grad
+    from repro_torch.kernels import build
+    from repro_torch.kernels.gp_fit import gp_lbfgs
+    from repro_torch.kernels.ref import gp_lbfgs_ref
+    assert build.load("gp_fit").gp_lbfgs_body(n) == n
+    x, y, mask, t0, R = _gp_fit_operands(n, 5, cuda)
+    B = x.shape[0]
     xr, yr, mr = (t.repeat_interleave(R, dim=0) for t in (x, y, mask))
     for it in (1, 2):
         got, counts, _ = gp_lbfgs(x, y, mask, t0, restarts=R, max_iter=it)
@@ -1298,6 +1314,47 @@ def test_gp_fit_kernel_matches_plain_version(cuda):
     assert float(((fk - fp).abs() / fp.abs().clamp_min(1.0)).max()) < 1e-3
     _, counts, _ = gp_lbfgs(x, y, mask, t0, restarts=R, max_iter=60)
     assert ((counts >= 1) & (counts <= 60) & (evals > counts)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 64])
+def test_gp_fit_kernel_not_positive_definite_at_start(cuda, n):
+    """A member whose kernel matrix is not positive definite at both its
+    starts (a signal of e^89, past float32's range: the sweep meets a NaN
+    pivot, as the plain version's Cholesky does) beside ordinary members:
+    the kernel's thetas NaN exactly where the plain version's are, the same
+    iteration counts after 1 and 2 iterations (a NaN gradient stops a row
+    after its first), and ``_fit_packed`` on the card falls back to
+    ``fallback_theta`` for that member alone, as on the CPU."""
+    from repro_torch.core.gp import fallback_theta
+    from repro_torch.core.gp_bank import _fit_packed
+    from repro_torch.kernels.gp_fit import gp_lbfgs
+    from repro_torch.kernels.ref import gp_lbfgs_ref
+    x, y, mask, t0, R = _gp_fit_operands(n, 9, cuda)
+    d = x.shape[2]
+    t0[:R, d] = 89.0
+    for it in (1, 2):
+        got, counts, _ = gp_lbfgs(x, y, mask, t0, restarts=R, max_iter=it)
+        want, want_counts = gp_lbfgs_ref(x, y, mask, t0, R, it)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.isnan(got[:R]).all() and not torch.isnan(got[R:]).any()
+        assert torch.equal(counts.long(), want_counts.long())
+        fine = ~torch.isnan(want)
+        assert float((got[fine] - want[fine]).abs().max()
+                     / want[fine].abs().max()) < 1e-3
+    B = x.shape[0]
+    theta, val, chol, _ = _fit_packed(x, y, mask, t0.reshape(B, R, d + 2),
+                                      max_iter=10)
+    c_theta, c_val, _, _ = _fit_packed(
+        *(t.cpu() for t in (x, y, mask, t0.reshape(B, R, d + 2))),
+        max_iter=10)
+    assert not torch.isfinite(val[0]) and not torch.isfinite(c_val[0])
+    assert torch.isfinite(val[1:]).all() and torch.isfinite(c_val[1:]).all()
+    np.testing.assert_allclose(theta[0].cpu().numpy(), fallback_theta(d),
+                               rtol=1e-6)
+    np.testing.assert_allclose(c_theta[0].numpy(), fallback_theta(d),
+                               rtol=1e-6)
+    assert torch.isfinite(chol).all()
 
 
 def _card_probes():

@@ -19,7 +19,12 @@ on the CPU here):
   bank misses the scalar bar exactly on ``chip_smoke.OTHER_OPTIMA``, the
   members its phase 5 excepts;
 * ``batched_posterior`` and RGPE weights/posteriors from GPs carried across
-  by ``repro_torch.interop``.
+  by ``repro_torch.interop``;
+* at the fit kernel's tiled sizes (n_max 8, 16, 32, 64, masked rows in
+  each): its arithmetic in plain torch (``kernels.ref.
+  gp_objective_sweep_ref``, K^-1 by a symmetric sweep) against the
+  reference's objective and gradient, and the port's ``_fit_packed``
+  against the reference's.
 
 The acquisition half (EHVI, Pareto masks, profiling-batch selection) is in
 ``tests/test_torch_acquisition.py``.
@@ -277,6 +282,95 @@ def test_fit_kernel_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ops.gp_lbfgs(x.to("meta"), y, torch.ones(2, 8), t0, restarts=2,
                      max_iter=5)
+
+
+#: the tiled body's padded sizes (``csrc/gp_fit.cu::gp_lbfgs_body``)
+TILED_SIZES = (8, 16, 32, 64)
+
+
+def _tiled_problem(n: int, members: int = 4, seed: int = 0):
+    """Seeded controller-shaped problems padded to ``n`` points: the even
+    members keep their first two thirds (masked rows past the last real
+    one), member 1 loses one row a quarter in (a masked row inside the
+    sweep); standardized targets, zero on the masked rows."""
+    rng = np.random.default_rng(seed + n)
+    d = 5
+    x = rng.uniform(0, 1, (members, n, d))
+    y = (1.2 - x[..., 0]) + 0.4 * x[..., 1] ** 2 \
+        + rng.normal(0, 0.05, (members, n))
+    mask = np.ones((members, n))
+    mask[::2, (2 * n) // 3:] = 0.0
+    mask[1, n // 4] = 0.0
+    mean = (y * mask).sum(1, keepdims=True) / mask.sum(1, keepdims=True)
+    std = np.sqrt(((y - mean) ** 2 * mask).sum(1, keepdims=True)
+                  / mask.sum(1, keepdims=True))
+    return x, (y - mean) / std * mask, mask
+
+
+@pytest.mark.parametrize("n", TILED_SIZES)
+def test_tiled_objective_matches_reference(n):
+    """The fit kernel's tiled arithmetic in plain torch
+    (``kernels.ref.gp_objective_sweep_ref``: K^-1 and the log-determinant
+    by one symmetric sweep, the masked rows past the last real one already
+    swept, the gradient's traces in closed form) against the reference's
+    masked objective and its autograd gradient, at the reference test's
+    bars; against a float64 evaluation it errs no more than the port's
+    float32 Cholesky route does (within 2x, plus 1e-6 of scale). A row
+    whose kernel matrix is not positive definite (a signal of e^89, past
+    float32's range) is NaN in value and gradient, as in the reference."""
+    from repro_torch.kernels.ref import gp_objective_sweep_ref
+    x, y, mask = _tiled_problem(n)
+    d = x.shape[2]
+    t0 = np.concatenate([restart_inits(d, 2, s) for s in (1, 2)])
+    t0[3, d] = 89.0
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+    v, g = gp_objective_sweep_ref(f32(t0), f32(x), f32(y), f32(mask))
+    v64, g64 = neg_mll_and_grad(*(torch.as_tensor(a, dtype=torch.float64)
+                                  for a in (t0, x, y, mask)))
+    vc, gc = neg_mll_and_grad(f32(t0), f32(x), f32(y), f32(mask))
+    for i in range(len(t0)):
+        rv, rg = _REF_MASKED(*(jnp.asarray(a[i], jnp.float32)
+                               for a in (t0, x, y, mask)))
+        if i == 3:
+            assert not np.isfinite(float(rv))
+            assert torch.isnan(v[i]) and torch.isnan(g[i]).all()
+            continue
+        np.testing.assert_allclose(float(v[i]), float(rv), rtol=1e-5)
+        np.testing.assert_allclose(g[i].numpy(), np.asarray(rg), rtol=1e-3,
+                                   atol=1e-4)
+        scale = float(g64[i].abs().max())
+        for err, bar in (
+                (abs(float(v[i]) - float(v64[i])),
+                 abs(float(vc[i]) - float(v64[i]))),
+                (float((g[i].double() - g64[i]).abs().max()),
+                 float((gc[i].double() - g64[i]).abs().max()))):
+            assert err <= 2.0 * bar + 1e-6 * max(scale, abs(float(v64[i])))
+
+
+@pytest.mark.parametrize("n", TILED_SIZES)
+def test_fit_packed_matches_reference_at_tiled_sizes(n):
+    """The port's ``_fit_packed`` on the CPU (the plain version of the fit
+    kernel) against the reference's at each padded size of the tiled body,
+    from the same starts, masked members included: each member's best
+    objective within 1e-3 relative and its theta within 1e-2 of theta's
+    scale (every member's best restart is unique here; float32 rounding,
+    amplified by the flat optimum, parts the iterates by up to 8e-3 at
+    n = 64)."""
+    x, y, mask = _tiled_problem(n, members=3)
+    d, R = x.shape[2], FIT_RESTARTS
+    t0s = np.stack([restart_inits(d, R, 7 * i) for i in range(len(x))])
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+    theta, val, _, _ = _fit_packed(f32(x), f32(y), f32(mask), f32(t0s),
+                                   max_iter=20)
+    r_theta, r_val, _, _ = ref_gp_bank._fit_packed(
+        *(jnp.asarray(a, jnp.float32) for a in (x, y, mask, t0s)),
+        max_iter=20)
+    r_val, r_theta = np.asarray(r_val), np.asarray(r_theta)
+    assert np.isfinite(r_val).all()
+    rel = np.abs(val.numpy() - r_val) / np.maximum(np.abs(r_val), 1.0)
+    assert rel.max() < 1e-3, rel
+    err = np.abs(theta.numpy() - r_theta).max() / np.abs(r_theta).max()
+    assert err < 1e-2, err
 
 
 def test_bank_posterior_agrees_with_scalar_oracle_and_reference(fitted):
